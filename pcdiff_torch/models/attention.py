@@ -1,0 +1,215 @@
+"""Attention and transformer building blocks.
+
+Counterpart of :mod:`pcdiff.models.attention`, in the graph the JAX package runs on the
+TPU (``set_ln_dense_fusion`` on): every pre-LN that feeds projections is fused into them
+through :func:`pcdiff_torch.ops.ln_dense.fused_ln_denses`, the attention's 1/sqrt(d) is
+folded into ``wq`` and its bias, and every attention goes through
+:func:`pcdiff_torch.ops.flash_attention.fused_attention_mh` with the heads folded in the
+feature axis. Parameters are fp32 in the ``nn.Linear`` layout; ``dtype`` is the
+activation dtype. Modules run in eval mode (no dropout): training comes with the
+training step.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.flash_attention import fused_attention_mh
+from ..ops.layer_norm import layer_norm
+from ..ops.ln_dense import fused_ln_denses
+
+__all__ = [
+    "Dense",
+    "LayerNorm",
+    "CrossAttention",
+    "Mlp",
+    "EncoderLayer",
+    "DecoderLayer",
+    "set_gelu_impl",
+    "gelu_act",
+    "LN_EPS",
+]
+
+LN_EPS = 1e-5  # torch-parity epsilon, as pcdiff.models.attention.LN_EPS
+
+_GELU_IMPL = "erf"  # erf | tanh
+
+
+def set_gelu_impl(mode: str) -> None:
+    """GELU of every MLP: 'erf' (exact, the default) or 'tanh' (torch approximate='tanh'),
+    as :func:`pcdiff.models.attention.set_gelu_impl`. The literal exact GELUs of
+    ``ViewAngleEmbedding`` do not follow it."""
+    global _GELU_IMPL
+    if mode not in ("erf", "tanh"):
+        raise ValueError(f"unknown GELU mode {mode!r}")
+    _GELU_IMPL = mode
+
+
+def gelu_act() -> str:
+    """The activation tag MLPs pass to the fused LN+Dense kernel."""
+    return "gelu" if _GELU_IMPL == "erf" else "gelu_tanh"
+
+
+def _xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    nn.init.uniform_(t, -bound, bound, generator=generator)
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``x W^T + b`` computed in ``dtype``; W is fp32 ``[out, in]``."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_features, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        out_features, in_features = self.weight.shape
+        _xavier_uniform_(self.weight, in_features, out_features, generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """Last-axis LayerNorm with fp32 fast-variance statistics, eps 1e-5, output in
+    ``dtype``. At a fused site the consumer reads ``weight``/``bias``/``eps`` and
+    normalises inside its projection kernel instead of calling this module."""
+
+    def __init__(self, dim: int, eps: float = LN_EPS, dtype: torch.dtype = torch.float32,
+                 zero_init: bool = False, device=None):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.zero_init = zero_init
+        self.weight = nn.Parameter(torch.empty(dim, device=device))
+        self.bias = nn.Parameter(torch.empty(dim, device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        del generator
+        nn.init.constant_(self.weight, 0.0 if self.zero_init else 1.0)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+
+
+def _ln_dense_multi(x, ln: LayerNorm, layers, dtype, acts=None, out_scales=None):
+    """LN(x) -> [act_i(Dense_i(LN(x)) * s_i)] through the fused kernel; ``out_scales``
+    are constants folded into the weights and biases (fp32) before the call."""
+    weights = [layer.weight for layer in layers]
+    biases = [layer.bias for layer in layers]
+    if out_scales is not None:
+        weights = [w if s is None else w * s for w, s in zip(weights, out_scales)]
+        biases = [b if (s is None or b is None) else b * s
+                  for b, s in zip(biases, out_scales)]
+    return fused_ln_denses(x, ln.weight, ln.bias, weights, biases, ln.eps, dtype, acts)
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention with separate query and key/value inputs, pre-LN fused into
+    the projections (reference RIN ``CrossAttention``). Output dim = ``dim``."""
+
+    def __init__(self, dim: int, num_heads: int = 16, qkv_bias: bool = False,
+                 q_dim: Optional[int] = None, kv_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dim = dim
+        self.num_heads = num_heads
+        self.dtype = dtype
+        q_dim = q_dim or dim
+        kv_dim = kv_dim or dim
+        self.wq = Dense(q_dim, dim, qkv_bias, dtype, device)
+        self.wk = Dense(kv_dim, dim, qkv_bias, dtype, device)
+        self.wv = Dense(kv_dim, dim, qkv_bias, dtype, device)
+        self.proj = Dense(dim, dim, True, dtype, device)
+
+    def _raw_kv(self, x_kv: torch.Tensor, layer: Dense) -> torch.Tensor:
+        # un-normalised memory (decoder cross-attention): a plain matmul, then the bias
+        out = x_kv.to(self.dtype) @ layer.weight.to(self.dtype).t()
+        return out if layer.bias is None else out + layer.bias.to(self.dtype)
+
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, q_ln: LayerNorm,
+                kv_ln: Optional[LayerNorm] = None) -> torch.Tensor:
+        """``x_q``/``x_kv`` are un-normalised; ``q_ln``/``kv_ln`` are the pre-LNs fused into
+        the projections (``kv_ln=None``: the kv side is projected as it is)."""
+        scale = (self.dim // self.num_heads) ** -0.5
+        if x_q is x_kv and q_ln is kv_ln:
+            q2, k2, v2 = _ln_dense_multi(x_q, q_ln, [self.wq, self.wk, self.wv], self.dtype,
+                                         out_scales=[scale, None, None])
+        else:
+            (q2,) = _ln_dense_multi(x_q, q_ln, [self.wq], self.dtype, out_scales=[scale])
+            if kv_ln is not None:
+                k2, v2 = _ln_dense_multi(x_kv, kv_ln, [self.wk, self.wv], self.dtype)
+            else:
+                k2, v2 = self._raw_kv(x_kv, self.wk), self._raw_kv(x_kv, self.wv)
+        return self.proj(fused_attention_mh(q2, k2, v2, self.num_heads))
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2. With ``ln``, the pre-LN and the GELU are fused into fc1."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.fc1 = Dense(in_dim, hidden_dim, True, dtype, device)
+        self.fc2 = Dense(hidden_dim, out_dim or in_dim, True, dtype, device)
+
+    def forward(self, x: torch.Tensor, ln: Optional[LayerNorm] = None) -> torch.Tensor:
+        if ln is not None:
+            (h,) = _ln_dense_multi(x, ln, [self.fc1], self.fc1.dtype, acts=[gelu_act()])
+        else:
+            h = F.gelu(self.fc1(x), approximate="tanh" if _GELU_IMPL == "tanh" else "none")
+        return self.fc2(h)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN encoder layer (torch ``norm_first=True``): x += attn(LN(x)); x += mlp(LN(x))."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
+                                        device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, device=device)
+        self.norm2 = LayerNorm(dim, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.self_attn(x, x, q_ln=self.norm1, kv_ln=self.norm1)
+        return x + self.mlp(x, ln=self.norm2)
+
+
+class DecoderLayer(nn.Module):
+    """Pre-LN decoder layer: self-attention over the queries, cross-attention to the
+    (un-normalised) memory, then the MLP (torch ``TransformerDecoderLayer(norm_first)``)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
+                                        device=device)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
+                                         device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, device=device)
+        self.norm2 = LayerNorm(dim, device=device)
+        self.norm3 = LayerNorm(dim, device=device)
+
+    def forward(self, q: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+        q = q + self.self_attn(q, q, q_ln=self.norm1, kv_ln=self.norm1)
+        q = q + self.cross_attn(q, memory, q_ln=self.norm2, kv_ln=None)
+        return q + self.mlp(q, ln=self.norm3)
