@@ -15,17 +15,18 @@ Both the unrolled ``block_i`` layout and the stacked ``blocks/block`` layout of
 ``scan_blocks=True`` are accepted; the stacked one is unstacked in numpy. A reference
 torch checkpoint reaches the port through
 :func:`pcdiff.core.checkpoint.import_two_stream_torch_state` and then this function.
+:func:`flax_from_params` is the inverse, for parameters or for gradients.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["params_from_flax", "init_params"]
+__all__ = ["params_from_flax", "flax_from_params", "init_params"]
 
 
 def _unstack_blocks(tree: Mapping[str, Any]) -> Dict[str, Any]:
@@ -83,6 +84,41 @@ def params_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         name = ".".join([*mods, leaf])
         state[name] = torch.tensor(arr, dtype=torch.float32)
     return state
+
+
+def flax_from_params(module: nn.Module,
+                     tensors: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_flax`: ``tensors`` (named as ``module``'s
+    parameters; its parameters themselves by default, or e.g. their gradients) -> a flax
+    parameter tree of fp32 numpy copies, without the top ``params`` key, in the unrolled
+    ``block_i`` layout. Dense weights go back to ``kernel [in, out]``, the patch conv to
+    HWIO, LayerNorm weights to ``scale`` and embeddings to ``embedding``."""
+    from ..models.attention import Dense, LayerNorm
+    from ..models.encoders import Embed, PatchConv
+
+    if tensors is None:
+        tensors = dict(module.named_parameters())
+    owners = {}
+    for mod_name, mod in module.named_modules():
+        for p_name, _ in mod.named_parameters(recurse=False):
+            owners[f"{mod_name}.{p_name}" if mod_name else p_name] = mod
+    flat: Dict[tuple, np.ndarray] = {}
+    for name, t in tensors.items():
+        if name not in owners:
+            raise KeyError(f"{name} is no parameter of the module")
+        owner = owners[name]
+        arr = np.array(t.detach().float().cpu())  # a copy: never a view of a live tensor
+        *mods, leaf = name.split(".")
+        if leaf == "weight" and isinstance(owner, Dense):
+            leaf, arr = "kernel", arr.T
+        elif leaf == "weight" and isinstance(owner, PatchConv):
+            leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and isinstance(owner, LayerNorm):
+            leaf = "scale"
+        elif leaf == "weight" and isinstance(owner, Embed):
+            leaf = "embedding"
+        flat[tuple(mods) + (leaf,)] = np.ascontiguousarray(arr)
+    return _nest(flat)
 
 
 @torch.no_grad()

@@ -1,21 +1,29 @@
 """Gaussian (DDPM) diffusion over precomputed tables.
 
-Counterpart of :mod:`pcdiff.diffusion.gaussian`, for what the Karras sampler needs: the
-coefficient tables are computed once in float64 numpy and gathered as float32;
-``p_mean_variance`` covers epsilon prediction with the ``fixed_small`` variance. Layout
-is channels-last ([B, N, C]). Training losses and the ancestral/DDIM loops come later.
+Counterpart of :mod:`pcdiff.diffusion.gaussian`, for what the Karras sampler and the
+train step need: the coefficient tables are computed once in float64 numpy and gathered
+as float32; ``p_mean_variance`` and ``training_losses`` cover epsilon prediction with the
+``fixed_small`` variance and the ``mse`` loss, plus the chamfer-XYZ term. Layout is
+channels-last ([B, N, C]). The ancestral/DDIM loops and the kl and learned-variance
+losses are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..geometry.ops import chamfer_distance_xyz
 from .schedules import get_named_beta_schedule
 
-__all__ = ["GaussianDiffusion", "diffusion_from_betas"]
+__all__ = ["GaussianDiffusion", "diffusion_from_betas", "mean_flat"]
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch axes -> [B]."""
+    return x.reshape(x.shape[0], -1).mean(dim=1)
 
 
 def _split_model_output(out: Any) -> Tuple[torch.Tensor, Any]:
@@ -47,6 +55,8 @@ class GaussianDiffusion:
         alphas = 1.0 - betas
         self.alphas_cumprod = np.cumprod(alphas, axis=0)
         self.alphas_cumprod_prev = np.append(1.0, self.alphas_cumprod[:-1])
+        self.sqrt_alphas_cumprod = np.sqrt(self.alphas_cumprod)
+        self.sqrt_one_minus_alphas_cumprod = np.sqrt(1.0 - self.alphas_cumprod)
         self.sqrt_recip_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod)
         self.sqrt_recipm1_alphas_cumprod = np.sqrt(1.0 / self.alphas_cumprod - 1)
         self.posterior_variance = (
@@ -74,6 +84,13 @@ class GaussianDiffusion:
         """Gather float32 table values at t and broadcast to ndim dims."""
         vals = self.table(name, t.device)[t]
         return vals.reshape(vals.shape + (1,) * (ndim - vals.ndim))
+
+    def q_sample(self, x_start: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """x_t ~ q(x_t | x_0) with the given standard-normal noise."""
+        nd = x_start.ndim
+        return (self._extract("sqrt_alphas_cumprod", t, nd) * x_start
+                + self._extract("sqrt_one_minus_alphas_cumprod", t, nd) * noise)
 
     def q_posterior_mean_variance(self, x_start, x_t, t):
         """Moments of the diffusion posterior q(x_{t-1} | x_t, x_0)."""
@@ -110,6 +127,35 @@ class GaussianDiffusion:
         # channels-last: scale/bias broadcast over the leading axes
         return torch.as_tensor(arr, dtype=torch.float32, device=x.device).reshape(
             (1,) * (x.ndim - 1) + (-1,))
+
+    def training_losses(self, model: Callable, x_start: torch.Tensor, t: torch.Tensor,
+                        noise: torch.Tensor, model_kwargs: Optional[Dict[str, Any]] = None,
+                        use_cd_xyz_loss: Union[bool, torch.Tensor] = False
+                        ) -> Dict[str, torch.Tensor]:
+        """Per-sample losses at timesteps t for the epsilon / mse configuration: ``mse`` =
+        mean_flat((noise - eps_hat)^2), and with ``use_cd_xyz_loss`` (a bool or a tensor
+        flag, the chamfer curriculum's gate) ``c_dist`` = flag * sqrt(alpha_bar_t) *
+        chamfer_xyz(x0_hat, x0), x0_hat implied by eps_hat; ``loss`` is their sum."""
+        x_start = self.scale_channels(x_start)
+        x_t = self.q_sample(x_start, t, noise)
+        model_output, _ = _split_model_output(model(x_t, t, **(model_kwargs or {})))
+        terms = {"mse": mean_flat((noise - model_output) ** 2)}
+        terms["loss"] = terms["mse"]
+        if use_cd_xyz_loss is not False:
+            rc_scale = self._extract("sqrt_alphas_cumprod", t, 1)
+            x_start_pred = self._predict_xstart_from_eps(x_t, t, model_output)
+            cd = rc_scale * chamfer_distance_xyz(x_start_pred, x_start)
+            gate = torch.as_tensor(use_cd_xyz_loss, dtype=cd.dtype, device=cd.device)
+            terms["c_dist"] = gate * cd
+            terms["loss"] = terms["loss"] + terms["c_dist"]
+        return terms
+
+    def scale_channels(self, x: torch.Tensor) -> torch.Tensor:
+        if self.channel_scales is not None:
+            x = x * self._channel(self.channel_scales, x)
+        if self.channel_biases is not None:
+            x = x + self._channel(self.channel_biases, x)
+        return x
 
     def unscale_channels(self, x: torch.Tensor) -> torch.Tensor:
         if self.channel_biases is not None:

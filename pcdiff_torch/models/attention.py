@@ -6,14 +6,16 @@ through :func:`pcdiff_torch.ops.ln_dense.fused_ln_denses`, the attention's 1/sqr
 folded into ``wq`` and its bias, and every attention goes through
 :func:`pcdiff_torch.ops.flash_attention.fused_attention_mh` with the heads folded in the
 feature axis. Parameters are fp32 in the ``nn.Linear`` layout; ``dtype`` is the
-activation dtype. Modules run in eval mode (no dropout): training comes with the
-training step.
+activation dtype. ``module.train()`` turns on the dropout of the JAX package's train mode
+(``deterministic=False``), with masks drawn from the generator that
+:func:`dropout_generator` installs; ``eval()`` turns it off.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,10 +34,15 @@ __all__ = [
     "DecoderLayer",
     "set_gelu_impl",
     "gelu_act",
+    "dropout",
+    "dropout_generator",
     "LN_EPS",
 ]
 
 LN_EPS = 1e-5  # torch-parity epsilon, as pcdiff.models.attention.LN_EPS
+# train-mode dropout of the encoder and decoder layers: every encoder of the JAX package
+# builds them with the default drop=0.1 (pcdiff.models.encoders)
+ENCODER_DROP = 0.1
 
 _GELU_IMPL = "erf"  # erf | tanh
 
@@ -53,6 +60,39 @@ def set_gelu_impl(mode: str) -> None:
 def gelu_act() -> str:
     """The activation tag MLPs pass to the fused LN+Dense kernel."""
     return "gelu" if _GELU_IMPL == "erf" else "gelu_tanh"
+
+
+_DROPOUT_GEN: Optional[torch.Generator] = None
+
+
+@contextmanager
+def dropout_generator(generator: torch.Generator) -> Iterator[torch.Generator]:
+    """Draw every train-mode dropout and CFG-dropout mask inside the block from
+    ``generator`` (on the activations' device)."""
+    global _DROPOUT_GEN
+    prev, _DROPOUT_GEN = _DROPOUT_GEN, generator
+    try:
+        yield generator
+    finally:
+        _DROPOUT_GEN = prev
+
+
+def draw_uniform(shape, device) -> torch.Tensor:
+    """U[0, 1) draws from the generator of :func:`dropout_generator`."""
+    if _DROPOUT_GEN is None:
+        raise RuntimeError("train-mode dropout draws from an explicit generator: run the "
+                           "model inside pcdiff_torch.models.attention.dropout_generator(g)")
+    return torch.rand(shape, generator=_DROPOUT_GEN, device=device)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and scale the kept
+    ones by 1 / (1 - rate); the identity when not training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = draw_uniform(x.shape, x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _xavier_uniform_(t: torch.Tensor, fan_in: int, fan_out: int, generator) -> None:
@@ -121,14 +161,18 @@ def _ln_dense_multi(x, ln: LayerNorm, layers, dtype, acts=None, out_scales=None)
 
 class CrossAttention(nn.Module):
     """Multi-head attention with separate query and key/value inputs, pre-LN fused into
-    the projections (reference RIN ``CrossAttention``). Output dim = ``dim``."""
+    the projections (reference RIN ``CrossAttention``). Output dim = ``dim``. In train
+    mode ``attn_drop`` drops the attention output before ``proj`` (the JAX package's
+    stand-in for dropping the weights inside the fused kernel). The JAX module's
+    ``proj_drop`` is left out: every caller there sets it to 0."""
 
     def __init__(self, dim: int, num_heads: int = 16, qkv_bias: bool = False,
                  q_dim: Optional[int] = None, kv_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 attn_drop: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
+        self.attn_drop = attn_drop
         self.dtype = dtype
         q_dim = q_dim or dim
         kv_dim = kv_dim or dim
@@ -156,15 +200,19 @@ class CrossAttention(nn.Module):
                 k2, v2 = _ln_dense_multi(x_kv, kv_ln, [self.wk, self.wv], self.dtype)
             else:
                 k2, v2 = self._raw_kv(x_kv, self.wk), self._raw_kv(x_kv, self.wv)
-        return self.proj(fused_attention_mh(q2, k2, v2, self.num_heads))
+        out = dropout(fused_attention_mh(q2, k2, v2, self.num_heads), self.attn_drop,
+                      self.training)
+        return self.proj(out)
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2. With ``ln``, the pre-LN and the GELU are fused into fc1."""
+    """fc1 -> GELU -> drop -> fc2 -> drop. With ``ln``, the pre-LN and the GELU are fused
+    into fc1."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 drop: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
+        self.drop = drop
         self.fc1 = Dense(in_dim, hidden_dim, True, dtype, device)
         self.fc2 = Dense(hidden_dim, out_dim or in_dim, True, dtype, device)
 
@@ -173,43 +221,52 @@ class Mlp(nn.Module):
             (h,) = _ln_dense_multi(x, ln, [self.fc1], self.fc1.dtype, acts=[gelu_act()])
         else:
             h = F.gelu(self.fc1(x), approximate="tanh" if _GELU_IMPL == "tanh" else "none")
-        return self.fc2(h)
+        h = dropout(h, self.drop, self.training)
+        return dropout(self.fc2(h), self.drop, self.training)
 
 
 class EncoderLayer(nn.Module):
-    """Pre-LN encoder layer (torch ``norm_first=True``): x += attn(LN(x)); x += mlp(LN(x))."""
+    """Pre-LN encoder layer (torch ``norm_first=True``): x += drop(attn(LN(x)));
+    x += mlp(LN(x)), with :data:`ENCODER_DROP` also inside the attention and the MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
-                                        device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, attn_drop=ENCODER_DROP,
+                                        dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=ENCODER_DROP, dtype=dtype,
+                       device=device)
         self.norm1 = LayerNorm(dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.self_attn(x, x, q_ln=self.norm1, kv_ln=self.norm1)
+        h = self.self_attn(x, x, q_ln=self.norm1, kv_ln=self.norm1)
+        x = x + dropout(h, ENCODER_DROP, self.training)
         return x + self.mlp(x, ln=self.norm2)
 
 
 class DecoderLayer(nn.Module):
     """Pre-LN decoder layer: self-attention over the queries, cross-attention to the
-    (un-normalised) memory, then the MLP (torch ``TransformerDecoderLayer(norm_first)``)."""
+    (un-normalised) memory, then the MLP (torch ``TransformerDecoderLayer(norm_first)``),
+    with :data:`ENCODER_DROP` on both attention residuals and inside the attentions and
+    the MLP."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
-                                        device=device)
-        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias=True, dtype=dtype,
-                                         device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, device=device)
+        self.self_attn = CrossAttention(dim, num_heads, qkv_bias=True, attn_drop=ENCODER_DROP,
+                                        dtype=dtype, device=device)
+        self.cross_attn = CrossAttention(dim, num_heads, qkv_bias=True,
+                                         attn_drop=ENCODER_DROP, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=ENCODER_DROP, dtype=dtype,
+                       device=device)
         self.norm1 = LayerNorm(dim, device=device)
         self.norm2 = LayerNorm(dim, device=device)
         self.norm3 = LayerNorm(dim, device=device)
 
     def forward(self, q: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
-        q = q + self.self_attn(q, q, q_ln=self.norm1, kv_ln=self.norm1)
-        q = q + self.cross_attn(q, memory, q_ln=self.norm2, kv_ln=None)
+        h = self.self_attn(q, q, q_ln=self.norm1, kv_ln=self.norm1)
+        q = q + dropout(h, ENCODER_DROP, self.training)
+        h = self.cross_attn(q, memory, q_ln=self.norm2, kv_ln=None)
+        q = q + dropout(h, ENCODER_DROP, self.training)
         return q + self.mlp(q, ln=self.norm3)

@@ -3,8 +3,11 @@
 Counterpart of :mod:`pcdiff.models.rin`: an x-stream of point tokens exchanges
 information with a z-stream of latent tokens through read/write cross-attentions, and the
 quadratic self-attention runs on the latents only. ``ln_latent`` is zero-initialised, so
-latent self-conditioning is a no-op at init. The RCW blocks run as a Python loop: the JAX
-package's ``scan_blocks`` exists only to cut XLA compile time and has no counterpart.
+latent self-conditioning is a no-op at init, and the MLP over the previous latent sees it
+detached (``lax.stop_gradient`` in the JAX package). The backbone's dropout rates are 0,
+as the JAX package's are, so train mode changes nothing here. The RCW blocks run as a
+Python loop: the JAX package's ``scan_blocks`` exists only to cut XLA compile time and has
+no counterpart.
 """
 
 from __future__ import annotations

@@ -1,13 +1,19 @@
-"""TwoStreamDenoiser: the flagship multimodal completion denoiser, in eval mode.
+"""TwoStreamDenoiser: the flagship multimodal completion denoiser.
 
 Counterpart of :mod:`pcdiff.models.two_stream`. Modality presence is a [B] mask per
 modality: explicit through ``presence`` (the CFG sampler marks the zeroed rows), or by
-default the reference's batch-level any-nonzero check. ``encode_conditioning`` computes
-the conditioning tokens once, and ``forward`` takes them back as ``cond_tokens`` and
-skips the encoders. Token-type ids are fixed per modality (class=0, view=1,
-partial_pcd=2, depth=3) and their embeddings are presence-masked. Submodules carry the
-names of the flax parameter tree (``backbone``, ``encoders_<modality>``,
-``token_type_embeddings``). Train-mode CFG dropout comes with the training step.
+default the reference's batch-level any-nonzero check. ``encode_modalities`` runs the
+encoders once and ``assemble_conditioning`` applies the cheap per-forward parts (type
+embeddings, CFG dropout), so that the train step shares one encoding between the
+self-conditioning bootstrap and the main forward; ``encode_conditioning`` is the two in
+one, and ``forward`` takes its result back as ``cond_tokens`` and skips the encoders.
+Token-type ids are fixed per modality (class=0, view=1, partial_pcd=2, depth=3). In eval
+mode the type embeddings are presence-masked; in train mode (``model.train()``) they are
+added unmasked and CFG dropout combines a full-batch drop mask with per-modality keep
+masks, drawn from the generator of
+:func:`pcdiff_torch.models.attention.dropout_generator`. Submodules carry the names of
+the flax parameter tree (``backbone``, ``encoders_<modality>``,
+``token_type_embeddings``).
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..core.device import resolve_device
+from .attention import draw_uniform
 from .encoders import (
     ClassEmbedding,
     DepthMapEncoder,
@@ -35,19 +43,23 @@ _INPUT_OF = {"class": "class_labels", "view": "viewpoints", "partial_pcd": "part
 
 class TwoStreamDenoiser(nn.Module):
     """RIN backbone + multimodal conditioning encoders. Points are channels-last
-    ([B, N, C]); depth maps are NHWC."""
+    ([B, N, C]); depth maps are NHWC. Built on ``device``, the card unless the caller
+    asks for the CPU (``device="cpu"``). It starts in eval mode, as the JAX package's
+    ``train=False`` default; ``model.train()`` turns on dropout and CFG dropout."""
 
     def __init__(self, num_points: int = 1024, num_latents: int = 256,
-                 input_channels: int = 3, output_channels: int = 3, latent_dim: int = 768,
-                 x_dim: int = 512, num_blocks: int = 6, num_compute_layers: int = 4,
-                 num_classes: int = 16, num_heads: int = 8, num_tokens_ppcd: int = 64,
-                 num_tokens_depth: int = 32, depth_image_size: int = 512,
-                 depth_patch: int = 32,
+                 cond_drop_prob: float = 0.1, input_channels: int = 3,
+                 output_channels: int = 3, latent_dim: int = 768, x_dim: int = 512,
+                 num_blocks: int = 6, num_compute_layers: int = 4, num_classes: int = 16,
+                 num_heads: int = 8, num_tokens_ppcd: int = 64, num_tokens_depth: int = 32,
+                 depth_image_size: int = 512, depth_patch: int = 32,
                  active_modalities: Sequence[str] = ("class", "view", "partial_pcd", "depth"),
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
+        device = resolve_device(device)
         self.num_points = num_points
         self.num_latents = num_latents
+        self.cond_drop_prob = cond_drop_prob
         self.latent_dim = latent_dim
         self.num_tokens_ppcd = num_tokens_ppcd
         self.num_tokens_depth = num_tokens_depth
@@ -74,6 +86,7 @@ class TwoStreamDenoiser(nn.Module):
                 raise ValueError(f"unknown modality: {m}")
             setattr(self, f"encoders_{m}", enc)
         self.token_type_embeddings = Embed(4, latent_dim, 0.005, dtype, device)
+        self.eval()
 
     def modality_token_counts(self) -> Dict[str, int]:
         counts = {"class": 1, "view": 1, "partial_pcd": self.num_tokens_ppcd,
@@ -95,30 +108,66 @@ class TwoStreamDenoiser(nn.Module):
             return override.to(self.dtype)
         return (value != 0).any().to(self.dtype)
 
-    def encode_conditioning(self, batch_size: int, class_labels=None, viewpoints=None,
-                            partial_pcd=None, depth_maps=None,
-                            presence: Optional[Dict[str, torch.Tensor]] = None
-                            ) -> torch.Tensor:
-        """All conditioning tokens, type embeddings applied -> [B, num_cond, D]. Runs the
-        modality encoders; absent inputs give zero tokens and zero presence."""
+    def encode_modalities(self, batch_size: int, class_labels=None, viewpoints=None,
+                          partial_pcd=None, depth_maps=None,
+                          presence: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Dict[str, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Run the modality encoders once: ``{modality: (tokens * presence [B, count, D],
+        presence [B, 1, 1])}``, ``None`` for an absent input."""
         presence = presence or {}
         inputs = {"class_labels": class_labels, "viewpoints": viewpoints,
                   "partial_pcd": partial_pcd, "depth_maps": depth_maps}
-        device = self.token_type_embeddings.weight.device
-        chunks = []
-        for m, count in self.modality_token_counts().items():
+        raw: Dict[str, Optional[Tuple[torch.Tensor, torch.Tensor]]] = {}
+        for m in self.active_modalities:
             value = inputs[_INPUT_OF[m]]
             if value is None:
+                raw[m] = None
+                continue
+            p = self._presence(value, presence.get(m))
+            p = torch.broadcast_to(p, (batch_size,))[:, None, None]
+            raw[m] = (getattr(self, f"encoders_{m}")(value) * p, p)
+        return raw
+
+    def assemble_conditioning(self, raw: Dict[str, Optional[Tuple[torch.Tensor, torch.Tensor]]],
+                              batch_size: int) -> torch.Tensor:
+        """Type embeddings (+ CFG dropout in train mode) over the encoded modalities ->
+        [B, num_cond, D]. Each call in train mode draws fresh masks."""
+        device = self.token_type_embeddings.weight.device
+        keep = None
+        if self.training and self.cond_drop_prob > 0.0:
+            full_drop = draw_uniform((batch_size,), device) < self.cond_drop_prob
+            keep = draw_uniform((batch_size, len(self.active_modalities)),
+                                device) >= self.cond_drop_prob
+            keep = (keep & ~full_drop[:, None]).to(self.dtype)
+        chunks = []
+        for i, (m, count) in enumerate(self.modality_token_counts().items()):
+            if raw.get(m) is None:
                 tokens = torch.zeros(batch_size, count, self.latent_dim, dtype=self.dtype,
                                      device=device)
                 p = torch.zeros(batch_size, 1, 1, dtype=self.dtype, device=device)
             else:
-                p = self._presence(value, presence.get(m))
-                p = torch.broadcast_to(p, (batch_size,))[:, None, None]
-                tokens = getattr(self, f"encoders_{m}")(value) * p
+                tokens, p = raw[m]
             ids = torch.full((count,), MODALITY_TOKEN_IDS[m], dtype=torch.long, device=device)
-            chunks.append(tokens + self.token_type_embeddings(ids)[None] * p)
+            type_emb = self.token_type_embeddings(ids)[None]
+            if self.training:
+                chunk = tokens + type_emb
+                if keep is not None:
+                    chunk = chunk * keep[:, i][:, None, None]
+            else:
+                chunk = tokens + type_emb * p
+            chunks.append(chunk)
         return torch.cat(chunks, dim=1)
+
+    def encode_conditioning(self, batch_size: int, class_labels=None, viewpoints=None,
+                            partial_pcd=None, depth_maps=None,
+                            presence: Optional[Dict[str, torch.Tensor]] = None
+                            ) -> torch.Tensor:
+        """All conditioning tokens, type embeddings applied -> [B, num_cond, D]. Absent
+        inputs give zero tokens and zero presence."""
+        raw = self.encode_modalities(batch_size, class_labels=class_labels,
+                                     viewpoints=viewpoints, partial_pcd=partial_pcd,
+                                     depth_maps=depth_maps, presence=presence)
+        return self.assemble_conditioning(raw, batch_size)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor, class_labels=None, viewpoints=None,
                 partial_pcd=None, depth_maps=None, prev_latent: Optional[torch.Tensor] = None,

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled wit
 checkout (a directory that ``.gitignore`` lists) and loaded with :mod:`ctypes`; it is
 rebuilt when the source is newer than the library. Importing this module builds
 nothing and needs no ``nvcc``: only :func:`library` does, and only the CUDA branch of a
-kernel wrapper calls it.
+kernel wrapper calls it. Each source has its own lock, so calls of :func:`library` for
+several sources from several threads run their ``nvcc``s at once.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ NVCC_FLAGS = (
 build_seconds: dict[str, float] = {}  # name -> seconds nvcc took in this process
 build_log: dict[str, str] = {}  # name -> nvcc's diagnostics (ptxas register/smem report)
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
+_locks_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -46,30 +48,30 @@ def _nvcc() -> str:
     return found
 
 
-def _build(name: str, src: Path, lib: Path) -> None:
+def _compile(name: str, src: Path, lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True, check=False)
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
     os.replace(tmp, lib)
     build_seconds[name] = time.perf_counter() - t0
-    build_log[name] = proc.stdout + proc.stderr
+    build_log[name] = proc.stdout
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing or stale."""
-    with _lock:
+    with _locks_lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         lib = _libs.get(name)
         if lib is None:
-            src = CSRC_DIR / f"{name}.cu"
-            path = BUILD_DIR / f"lib{name}.so"
+            src, path = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
             if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
-                _build(name, src, path)
+                _compile(name, src, path)
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib

@@ -1,19 +1,24 @@
-"""Fused LayerNorm -> projection(s), forward: ``[act_i(LN(x) W_i^T + b_i)]`` without the
-normalised tensor ever reaching device memory.
+"""Fused LayerNorm -> projection(s), forward and backward: ``[act_i(LN(x) W_i^T + b_i)]``
+without the normalised tensor ever reaching device memory.
 
-Counterpart of :func:`pcdiff.ops.ln_dense.fused_ln_denses`. On a CUDA tensor
-:func:`fused_ln_denses` launches the hand-written kernel ``csrc/ln_dense.cu`` (it
-replaces the TPU kernel ``pcdiff/ops/ln_dense.py::_ln_denses_kernel``); on a CPU tensor
-it runs :func:`_torch_ln_denses`, the plain PyTorch version of the same function. The
-kernel's note (what bounds it on the H100, what its design does about it) is at the head
-of its source.
+Counterpart of :func:`pcdiff.ops.ln_dense.fused_ln_denses` and its custom VJP.
+:func:`fused_ln_denses` is a :class:`torch.autograd.Function`. On a CUDA tensor its
+forward launches ``csrc/ln_dense.cu`` (it replaces the TPU kernel
+``pcdiff/ops/ln_dense.py::_ln_denses_kernel``) and its backward ``csrc/ln_dense_bwd.cu``
+(it replaces ``_ln_denses_bwd_kernel``); on a CPU tensor they run :func:`_torch_ln_denses`
+and :func:`_torch_ln_denses_bwd`, the plain PyTorch versions of the same functions. The
+backward recomputes from the saved ``(x, scale, bias, weights, biases)``, as the JAX custom
+VJP does. Each kernel's note (what bounds it on the H100, what its design does about it)
+is at the head of its source.
 
 Layout: the weights are in the ``nn.Linear`` layout ``[F_i, C]`` (the JAX package's
-kernels are ``[C, F_i]``). Numerics, as the TPU kernel's: fp32 fast-variance LN
-statistics and fp32 affine, the normalised rows cast to the product dtype (bf16 when the
-output is bf16, fp32 when it is fp32), fp32 accumulation, bias and activation on the
-fp32 accumulator, one cast out. ``gelu`` is the exact-erf form through ``_erf_f32``,
-XLA's erf rational that the TPU kernel reproduces.
+kernels are ``[C, F_i]``), and so are their gradients. Numerics, as the TPU kernels': fp32
+fast-variance LN statistics and fp32 affine, the normalised rows cast to the product dtype
+(bf16 when the output is bf16, fp32 when it is fp32), fp32 accumulation, bias and
+activation on the fp32 accumulator, one cast out. ``gelu`` is the exact-erf form through
+``_erf_f32``, XLA's erf rational that the TPU kernel reproduces. In the backward,
+g * act'(z) is rounded to the product dtype before its products, the bias gradient is
+summed from it before that rounding, and the parameter gradients are fp32.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ __all__ = [
     "fused_ln_denses",
     "set_lndense_backend",
     "launches",
+    "bwd_launches",
 ]
 
 _BACKEND = "kernel"  # kernel | plain
@@ -36,8 +42,10 @@ _ACT_CODES = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
 _MAX_C = 256
 _TILE_F = 64
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py resets it)
+launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
+bwd_launches = 0  # backward kernel launches, likewise
 _fn = None
+_bwd_fn = None
 
 # XLA's f32 erf rational (xla/client/lib/math.cc ErfImpl32), as pcdiff/ops/ln_dense.py.
 _ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
@@ -48,8 +56,8 @@ _ERF_BETA = (-1.1791602954361697e-7, 0.000023547966471313185,
 
 
 def set_lndense_backend(name: str) -> None:
-    """'kernel' (default) launches the CUDA kernel for CUDA tensors; 'plain' runs the plain
-    PyTorch version on every device (for comparing the two on the card)."""
+    """'kernel' (default) launches the CUDA kernels for CUDA tensors; 'plain' runs the
+    plain PyTorch versions on every device (for comparing the two on the card)."""
     global _BACKEND
     if name not in ("kernel", "plain"):
         raise ValueError(f"unknown LN+Dense backend {name!r}")
@@ -83,25 +91,88 @@ def _apply_act(o32, act):
     raise ValueError(f"unknown activation {act!r}")
 
 
+def _act_grad(z, act):
+    """d act(z) / dz, as pcdiff.ops.ln_dense._act_grad (None for no activation)."""
+    if act is None:
+        return None
+    if act == "gelu":
+        phi = torch.exp(z * z * -0.5) * 0.3989422804014327  # 1/sqrt(2 pi)
+        cdf = 0.5 * (1.0 + _erf_f32(z * (2.0**-0.5)))
+        return cdf + z * phi
+    if act == "quick_gelu":
+        s = 1.0 / (1.0 + torch.exp(torch.clamp(-1.702 * z, -30.0, 30.0)))
+        return s * (1.0 + 1.702 * z * (1.0 - s))
+    if act == "gelu_tanh":
+        # f = z sigmoid(2u), u = k (z + a z^3): f' = s + 2 z k (1 + 3 a z^2) s (1 - s)
+        u2 = 1.5957691216057308 * (z + 0.044715 * z * z * z)
+        s = 1.0 / (1.0 + torch.exp(torch.clamp(-u2, -30.0, 30.0)))
+        up = 0.7978845608028654 * (1.0 + 0.134145 * z * z)
+        return s + 2.0 * z * up * s * (1.0 - s)
+    raise ValueError(f"unknown activation {act!r}")
+
+
 def _product_dtype(out_dtype):
-    return torch.float32 if out_dtype == torch.float32 else torch.bfloat16
+    """bf16 products for a bf16 output; fp32 (fp64 for gradcheck) products otherwise."""
+    return out_dtype if out_dtype in (torch.float32, torch.float64) else torch.bfloat16
+
+
+def _acc_dtype(out_dtype):
+    return torch.float64 if out_dtype == torch.float64 else torch.float32
+
+
+def _normalise(x, scale, bias, eps, acc):
+    """(xhat, rstd, y32): the fast-variance LayerNorm in ``acc`` and its affine."""
+    x32 = x.to(acc)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * rstd
+    return xhat, rstd, xhat * scale.to(acc) + bias.to(acc)
 
 
 def _torch_ln_denses(x, scale, bias, weights, biases, eps, out_dtype, acts):
-    """Plain version of the kernel, with its dtype casts."""
-    mxu = _product_dtype(out_dtype)
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = torch.clamp_min((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    y = (y * scale.float() + bias.float()).to(mxu).float()
+    """Plain version of the forward kernel, with its dtype casts."""
+    mxu, acc = _product_dtype(out_dtype), _acc_dtype(out_dtype)
+    y = _normalise(x, scale, bias, eps, acc)[2].to(mxu).to(acc)
     outs = []
     for w, b, act in zip(weights, biases, acts):
-        o32 = torch.matmul(y, w.to(mxu).float().t())
+        o32 = torch.matmul(y, w.to(mxu).to(acc).t())
         if b is not None:
-            o32 = o32 + b.float()
+            o32 = o32 + b.to(acc)
         outs.append(_apply_act(o32, act).to(out_dtype))
     return outs
+
+
+def _torch_ln_denses_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
+    """Plain version of the backward kernel (``_ln_denses_bwd_kernel``), weights in the
+    ``[F_i, C]`` layout. Returns (dx, dscale, dbias, [dW_i], [db_i or None]); dx in x's
+    dtype, the parameter gradients fp32 (fp64 for fp64 inputs), summed over all rows."""
+    mxu, acc = _product_dtype(out_dtype), _acc_dtype(out_dtype)
+    c = x.shape[-1]
+    xhat, rstd, y32 = _normalise(x, scale, bias, eps, acc)
+    xhat, rstd = xhat.reshape(-1, c), rstd.reshape(-1, 1)
+    y = y32.reshape(-1, c).to(mxu).to(acc)
+    dy = torch.zeros_like(y)
+    dws, dbs = [], []
+    for w, b, g, act in zip(weights, biases, gs, acts):
+        wm = w.to(mxu).to(acc)
+        g32 = g.reshape(-1, w.shape[0]).to(acc)
+        if act is not None:
+            z = torch.matmul(y, wm.t())
+            if b is not None:
+                z = z + b.to(acc)
+            g32 = g32 * _act_grad(z, act)
+        gz = g32.to(mxu).to(acc)
+        dbs.append(None if b is None else g32.sum(dim=0))
+        dws.append(torch.matmul(gz.t(), y))  # [F, C]
+        dy = dy + torch.matmul(gz, wm)
+    dscale = (dy * xhat).sum(dim=0)
+    dbias = dy.sum(dim=0)
+    dxhat = dy * scale.to(acc)
+    m1 = dxhat.sum(dim=-1, keepdim=True) / c
+    m2 = (dxhat * xhat).sum(dim=-1, keepdim=True) / c
+    dx = (rstd * (dxhat - m1 - xhat * m2)).reshape(x.shape).to(x.dtype)
+    return dx, dscale, dbias, dws, dbs
 
 
 def _kernel_fn():
@@ -125,8 +196,7 @@ def _check_param(t, shape, device, what):
         raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
-    global launches
+def _check(x, scale, bias, weights, biases, out_dtype, acts):
     n = len(weights)
     if not 1 <= n <= 3 or len(biases) != n or len(acts) != n:
         raise ValueError("1 to 3 projections, with one bias and one act each")
@@ -146,7 +216,6 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
     dev = x.device
     _check_param(scale, (c,), dev, "LN scale")
     _check_param(bias, (c,), dev, "LN bias")
-    outs = []
     for i, (w, b) in enumerate(zip(weights, biases)):
         f = w.shape[0]
         if f == 0 or f % _TILE_F:
@@ -154,7 +223,16 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
         _check_param(w, (f, c), dev, f"weight {i}")
         if b is not None:
             _check_param(b, (f,), dev, f"bias {i}")
-        outs.append(torch.empty(x.shape[:-1] + (f,), dtype=out_dtype, device=dev))
+    return rows, c
+
+
+def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
+    global launches
+    n = len(weights)
+    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
+    dev = x.device
+    outs = [torch.empty(x.shape[:-1] + (w.shape[0],), dtype=out_dtype, device=dev)
+            for w in weights]
     vp = ctypes.c_void_p * 3
     ci = ctypes.c_int * 3
     pad = [None] * (3 - n)
@@ -174,6 +252,123 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
     return outs
 
 
+def _bwd_kernel_fn():
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = _native.library("ln_dense_bwd").pcdiff_ln_denses_bwd
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        ptrs, ints = ctypes.POINTER(vp), ctypes.POINTER(i32)
+        fn.argtypes = [
+            vp, vp, vp, i32,                  # x, ln_scale, ln_bias, n_out
+            ptrs, ptrs, ptrs, ints, ints,     # w, b, g, f, act
+            vp, vp, vp, ptrs, ptrs,           # dx, dscale, dbias, dw, db
+            vp, ptrs, vp, ptrs, ptrs, ints,   # stats, gz, ln_part, dw_part, db_part, dw_split
+            i32, i32, ctypes.c_float, i32, i32, vp,  # rows, c, eps, x_bf16, out_bf16, stream
+        ]
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
+
+
+_ROW_BLOCK = 64  # rows per block of the backward's row pass (csrc/ln_dense_bwd.cu BM)
+_SM_TARGET = 264  # blocks the weight-gradient pass aims for: two per SM of an H100
+
+
+def _dw_split(rows: int, f: int, c: int) -> int:
+    """How many row ranges the weight-gradient pass of one [F, C] gradient splits into, so
+    that its (F/64) x (C/64) tiles give about two blocks per SM."""
+    tiles = (f // _TILE_F) * max(1, c // _TILE_F)
+    return max(1, min(-(-rows // _ROW_BLOCK), -(-_SM_TARGET // tiles)))
+
+
+def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
+    global bwd_launches
+    n = len(weights)
+    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
+    dev = x.device
+    for i, (w, g) in enumerate(zip(weights, gs)):
+        if g.dtype != out_dtype or not g.is_contiguous() or g.numel() != rows * w.shape[0]:
+            raise ValueError(f"gradient {i} must be a contiguous {out_dtype} [..., "
+                             f"{w.shape[0]}] tensor, got {g.dtype} {tuple(g.shape)}")
+    mxu = _product_dtype(out_dtype)
+    f32 = dict(dtype=torch.float32, device=dev)
+    blocks = -(-rows // _ROW_BLOCK)
+    dx = torch.empty_like(x)
+    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
+    dws = [torch.empty(w.shape, **f32) for w in weights]
+    dbs = [None if b is None else torch.empty(w.shape[0], **f32)
+           for w, b in zip(weights, biases)]
+    # scratch: LN (mean, rstd) per row; g * act'(z) in the product dtype where there is an
+    # activation; per-row-block partial sums of dscale/dbias and db; per-range dW partials
+    stats = torch.empty(rows, 2, **f32)
+    gz = [torch.empty(rows, w.shape[0], dtype=mxu, device=dev) if a is not None else None
+          for w, a in zip(weights, acts)]
+    ln_part = torch.empty(2, blocks, c, **f32)
+    splits = [_dw_split(rows, w.shape[0], c) for w in weights]
+    dw_part = [torch.empty(sp, w.shape[0], c, **f32) for sp, w in zip(splits, weights)]
+    db_part = [None if b is None else torch.empty(blocks, w.shape[0], **f32)
+               for w, b in zip(weights, biases)]
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * 3)(*[None if t is None else t.data_ptr() for t in ts],
+                                     *([None] * (3 - n)))
+
+    def ints(vals):
+        return (ctypes.c_int * 3)(*vals, *([0] * (3 - n)))
+
+    with torch.cuda.device(dev):
+        err = _bwd_kernel_fn()(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n,
+            ptrs(weights), ptrs(biases), ptrs(gs),
+            ints([w.shape[0] for w in weights]), ints([_ACT_CODES[a] for a in acts]),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ptrs(dws), ptrs(dbs),
+            stats.data_ptr(), ptrs(gz), ln_part.data_ptr(), ptrs(dw_part), ptrs(db_part),
+            ints(splits), rows, c, float(eps), int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
+    bwd_launches += 1
+    return dx, dscale, dbias, dws, dbs
+
+
+def _use_kernel(x) -> bool:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LN+Dense path for device {x.device}")
+    return x.device.type == "cuda" and _BACKEND == "kernel"
+
+
+class _FusedLnDenses(torch.autograd.Function):
+    """Forward: K3 or its plain version; saves (x, scale, bias, weights, biases) as the JAX
+    custom VJP does. Backward: K4 or its plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, out_dtype, acts, n, *params):
+        weights, biases = params[:n], params[n:]
+        ctx.eps, ctx.out_dtype, ctx.acts, ctx.n = eps, out_dtype, acts, n
+        ctx.has_bias = tuple(b is not None for b in biases)
+        ctx.save_for_backward(x, scale, bias, *weights, *[b for b in biases if b is not None])
+        if _use_kernel(x):
+            outs = _launch(x, scale, bias, weights, biases, eps, out_dtype, acts)
+        else:
+            outs = _torch_ln_denses(x, scale, bias, weights, biases, eps, out_dtype, acts)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, scale, bias, *rest = ctx.saved_tensors
+        n = ctx.n
+        weights, present = rest[:n], iter(rest[n:])
+        biases = [next(present) if hb else None for hb in ctx.has_bias]
+        gs = [g.to(ctx.out_dtype).contiguous() for g in gs]
+        if _use_kernel(x):
+            dx, dscale, dbias, dws, dbs = _launch_bwd(
+                x, scale, bias, weights, biases, gs, ctx.eps, ctx.out_dtype, ctx.acts)
+        else:
+            dx, dscale, dbias, dws, dbs = _torch_ln_denses_bwd(
+                x, scale, bias, weights, biases, gs, ctx.eps, ctx.out_dtype, ctx.acts)
+        return (dx, dscale, dbias, None, None, None, None, *dws, *dbs)
+
+
 def fused_ln_denses(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -186,11 +381,9 @@ def fused_ln_denses(
 ) -> list:
     """``[act_i(LN(x; scale, bias, eps) @ W_i^T + b_i)]`` as a list of ``[..., F_i]``
     tensors in ``out_dtype``. ``weights`` are ``[F_i, C]``; ``biases`` entries may be None;
-    ``acts`` entries are None | 'gelu' | 'gelu_tanh' | 'quick_gelu'."""
+    ``acts`` entries are None | 'gelu' | 'gelu_tanh' | 'quick_gelu'. Differentiable in x,
+    the LN affine, the weights and the biases."""
     weights, biases = tuple(weights), tuple(biases)
     acts = (None,) * len(weights) if acts is None else tuple(acts)
-    if x.device.type == "cuda" and _BACKEND == "kernel":
-        return _launch(x, scale, bias, weights, biases, eps, out_dtype, acts)
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no LN+Dense path for device {x.device}")
-    return _torch_ln_denses(x, scale, bias, weights, biases, eps, out_dtype, acts)
+    return list(_FusedLnDenses.apply(x, scale, bias, eps, out_dtype, acts, len(weights),
+                                     *weights, *biases))

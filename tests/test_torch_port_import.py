@@ -1,4 +1,5 @@
-"""The port imports no JAX, and importing it (or running it on the CPU) builds nothing.
+"""The port imports no JAX, and importing it (or running it on the CPU: a sampler run and a
+train step) builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -24,6 +25,10 @@ import pcdiff_torch.models.encoders, pcdiff_torch.models.rin, pcdiff_torch.model
 import pcdiff_torch.models.wrapper
 import pcdiff_torch.ops, pcdiff_torch.ops.flash_attention, pcdiff_torch.ops.layer_norm
 import pcdiff_torch.ops.ln_dense
+import pcdiff_torch.core.device, pcdiff_torch.data, pcdiff_torch.data.synthetic
+import pcdiff_torch.geometry, pcdiff_torch.geometry.ops
+import pcdiff_torch.train, pcdiff_torch.train.ema, pcdiff_torch.train.state
+import pcdiff_torch.train.step
 from pcdiff_torch.ops import _native, flash_attention as fa, ln_dense as ld
 
 # a CPU forward and a CPU sampler run go through the plain versions: no build, no launch
@@ -33,7 +38,7 @@ from pcdiff_torch.models import BoundTwoStream, TwoStreamDenoiser
 g = torch.Generator().manual_seed(0)
 m = init_params(TwoStreamDenoiser(num_points=16, num_latents=4, latent_dim=32, x_dim=32,
                                   num_blocks=1, num_compute_layers=1, num_heads=4,
-                                  active_modalities=("class",)), g)
+                                  active_modalities=("class",), device="cpu"), g)
 s = PointCloudSampler([BoundTwoStream(m)], [diffusion_from_betas()], [16],
                       guidance_scale=[3.0], use_karras=[True], karras_steps=[4],
                       sigma_min=[1e-3], sigma_max=[120.0], s_churn=[0.0],
@@ -41,10 +46,20 @@ s = PointCloudSampler([BoundTwoStream(m)], [diffusion_from_betas()], [16],
 out = s.sample_batch(2, {"class_labels": torch.tensor([1, 2])}, g)
 assert out.shape == (2, 16, 3) and torch.isfinite(out).all()
 
+# a CPU train step goes through the plain backward versions
+import numpy as np
+from pcdiff_torch.train import create_train_state, make_train_step
+state = create_train_state(m, total_steps=10, device="cpu")
+step = make_train_step(m, diffusion_from_betas(), self_conditioning_prob=1.0, device="cpu")
+batch = {"target": np.random.default_rng(0).uniform(-0.5, 0.5, (2, 16, 3)).astype(np.float32),
+         "class_labels": np.array([1, 2])}
+assert torch.isfinite(step(state, batch, g, True)["loss"])
+
 bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "pcdiff"))
 assert not bad, bad
 assert _native._libs == {} and _native.build_seconds == {}, "a kernel was built"
 assert fa.launches == 0 and ld.launches == 0
+assert fa.bwd_launches == 0 and ld.bwd_launches == 0
 print("ok")
 """
 

@@ -204,7 +204,7 @@ def tiny():
     x, t = _arr(rng, 2, 32, 3), np.array([3, 817], dtype=np.int32)
     jmod = JTwoStream(**TINY)
     params = _params(jmod, rng, x, t, *batch.values())
-    tmod = _port(TTwoStream(**TINY), params)
+    tmod = _port(TTwoStream(**TINY, device="cpu"), params)
     prev = 0.5 * _arr(rng, 2, tmod.latent_tokens, 32)
     return jmod, params, tmod, batch, x, t, prev
 

@@ -63,7 +63,7 @@ def pair():
         flat[path] = {"kernel": z / np.sqrt(np.prod(sd.shape[:-1])), "scale": 1 + 0.1 * z,
                       "bias": 0.1 * z}.get(path[-1], 0.3 * z)
     params = traverse_util.unflatten_dict(flat)
-    tmod = TTwoStream(**TINY).eval()
+    tmod = TTwoStream(**TINY, device="cpu").eval()
     tmod.load_state_dict(params_from_flax(params), strict=True)
     jbound, tbound = JBound(jmod, {"params": params}), TBound(tmod)
     jkw = jbound.cfg_model_kwargs(B, {k: jnp.asarray(v) for k, v in batch.items()})

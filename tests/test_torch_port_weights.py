@@ -38,7 +38,7 @@ def unrolled():
 
 
 def test_unrolled_tree_loads_strict(unrolled):
-    model = TTwoStream(**TINY)
+    model = TTwoStream(**TINY, device="cpu")
     state = params_from_flax({"params": unrolled})
     model.load_state_dict(state, strict=True)
     sd = model.state_dict()
@@ -67,11 +67,11 @@ def test_scan_blocks_tree_loads_strict():
     """The layout ``scan_blocks=True`` models produce (the bench default)."""
     tree = _tree(np.random.default_rng(1), scan_blocks=True)
     assert tree["backbone"]["blocks"]["block"]["read"]["attn"]["wq"]["kernel"].shape[0] == 3
-    TTwoStream(**TINY).load_state_dict(params_from_flax(tree), strict=True)
+    TTwoStream(**TINY, device="cpu").load_state_dict(params_from_flax(tree), strict=True)
 
 
 def test_init_params_is_seeded():
-    a, b = TTwoStream(**TINY), TTwoStream(**TINY)
+    a, b = TTwoStream(**TINY, device="cpu"), TTwoStream(**TINY, device="cpu")
     init_params(a, torch.Generator().manual_seed(5))
     init_params(b, torch.Generator().manual_seed(5))
     sa, sb = a.state_dict(), b.state_dict()
