@@ -1,6 +1,14 @@
 """Neural models of the port: the two-stream denoiser, its encoders and building blocks."""
 
-from .attention import CrossAttention, DecoderLayer, EncoderLayer, Mlp, set_gelu_impl
+from .attention import (
+    CrossAttention,
+    DecoderLayer,
+    EncoderLayer,
+    Mlp,
+    fuse_ln_mlp_enabled,
+    set_gelu_impl,
+    set_ln_mlp_fusion,
+)
 from .embeddings import build_2d_sincos_position_embedding, timestep_embedding
 from .encoders import (
     ClassEmbedding,
@@ -18,6 +26,8 @@ __all__ = [
     "DecoderLayer",
     "Mlp",
     "set_gelu_impl",
+    "set_ln_mlp_fusion",
+    "fuse_ln_mlp_enabled",
     "timestep_embedding",
     "build_2d_sincos_position_embedding",
     "ClassEmbedding",

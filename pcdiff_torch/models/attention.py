@@ -6,8 +6,12 @@ through :func:`pcdiff_torch.ops.ln_dense.fused_ln_denses`, the attention's 1/sqr
 folded into ``wq`` and its bias, and every attention goes through
 :func:`pcdiff_torch.ops.flash_attention.fused_attention_mh` with the heads folded in the
 feature axis. Parameters are fp32 in the ``nn.Linear`` layout; ``dtype`` is the
-activation dtype. ``module.train()`` turns on the dropout of the JAX package's train mode
-(``deterministic=False``), with masks drawn from the generator that
+activation dtype. Two switches, both off by default as in the JAX package, select the
+fully fused configuration: :func:`set_ln_mlp_fusion` runs each pre-LN MLP whose dropout is
+inactive as one kernel (:func:`pcdiff_torch.ops.ln_mlp.fused_ln_mlp`), and
+:func:`pcdiff_torch.ops.layer_norm.set_layernorm_backend` sends every standalone
+:class:`LayerNorm` to its kernel. ``module.train()`` turns on the dropout of the JAX
+package's train mode (``deterministic=False``), with masks drawn from the generator that
 :func:`dropout_generator` installs; ``eval()`` turns it off.
 """
 
@@ -22,8 +26,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_attention import fused_attention_mh
-from ..ops.layer_norm import layer_norm
+from ..ops.layer_norm import fused_layer_norm
 from ..ops.ln_dense import fused_ln_denses
+from ..ops.ln_mlp import fused_ln_mlp
 
 __all__ = [
     "Dense",
@@ -34,6 +39,8 @@ __all__ = [
     "DecoderLayer",
     "set_gelu_impl",
     "gelu_act",
+    "set_ln_mlp_fusion",
+    "fuse_ln_mlp_enabled",
     "dropout",
     "dropout_generator",
     "LN_EPS",
@@ -60,6 +67,25 @@ def set_gelu_impl(mode: str) -> None:
 def gelu_act() -> str:
     """The activation tag MLPs pass to the fused LN+Dense kernel."""
     return "gelu" if _GELU_IMPL == "erf" else "gelu_tanh"
+
+
+_LN_MLP_FUSION = False
+
+
+def set_ln_mlp_fusion(mode: str) -> None:
+    """Whether each pre-LN MLP whose dropout is inactive runs LN -> fc1 -> act -> fc2 as one
+    kernel (:func:`pcdiff_torch.ops.ln_mlp.fused_ln_mlp`): 'off' (the default, the split
+    path: LN + fc1 fused, then fc2) or 'on', as :func:`pcdiff.models.attention.set_ln_mlp_fusion`.
+    The port has only the fused LN+Dense graph, so the JAX package's 'auto' (which follows
+    the LN+Dense fusion) means 'on' here. Parameters are the same either way."""
+    global _LN_MLP_FUSION
+    if mode not in ("off", "on", "auto"):
+        raise ValueError(f"unknown LN+MLP fusion mode {mode!r}")
+    _LN_MLP_FUSION = mode != "off"
+
+
+def fuse_ln_mlp_enabled() -> bool:
+    return _LN_MLP_FUSION
 
 
 _DROPOUT_GEN: Optional[torch.Generator] = None
@@ -144,7 +170,7 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
+        return fused_layer_norm(x, self.weight, self.bias, self.eps, self.dtype)
 
 
 def _ln_dense_multi(x, ln: LayerNorm, layers, dtype, acts=None, out_scales=None):
@@ -207,7 +233,8 @@ class CrossAttention(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> drop -> fc2 -> drop. With ``ln``, the pre-LN and the GELU are fused
-    into fc1."""
+    into fc1; with ``ln``, :func:`set_ln_mlp_fusion` on and the dropout inactive (eval mode
+    or rate 0), the whole MLP is one kernel."""
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: Optional[int] = None,
                  drop: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
@@ -217,6 +244,10 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden_dim, out_dim or in_dim, True, dtype, device)
 
     def forward(self, x: torch.Tensor, ln: Optional[LayerNorm] = None) -> torch.Tensor:
+        if ln is not None and fuse_ln_mlp_enabled() and (not self.training or self.drop == 0):
+            return fused_ln_mlp(x, ln.weight, ln.bias, self.fc1.weight, self.fc1.bias,
+                                self.fc2.weight, self.fc2.bias, ln.eps, self.fc1.dtype,
+                                gelu_act())
         if ln is not None:
             (h,) = _ln_dense_multi(x, ln, [self.fc1], self.fc1.dtype, acts=[gelu_act()])
         else:

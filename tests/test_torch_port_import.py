@@ -1,5 +1,5 @@
-"""The port imports no JAX, and importing it (or running it on the CPU: a sampler run and a
-train step) builds nothing.
+"""The port imports no JAX, and importing it (or running it on the CPU: a sampler run, a
+forward in the fully fused configuration and a train step) builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -24,12 +24,13 @@ import pcdiff_torch.models, pcdiff_torch.models.attention, pcdiff_torch.models.e
 import pcdiff_torch.models.encoders, pcdiff_torch.models.rin, pcdiff_torch.models.two_stream
 import pcdiff_torch.models.wrapper
 import pcdiff_torch.ops, pcdiff_torch.ops.flash_attention, pcdiff_torch.ops.layer_norm
-import pcdiff_torch.ops.ln_dense
+import pcdiff_torch.ops.ln_dense, pcdiff_torch.ops.ln_mlp
 import pcdiff_torch.core.device, pcdiff_torch.data, pcdiff_torch.data.synthetic
 import pcdiff_torch.geometry, pcdiff_torch.geometry.ops
 import pcdiff_torch.train, pcdiff_torch.train.ema, pcdiff_torch.train.state
 import pcdiff_torch.train.step
-from pcdiff_torch.ops import _native, flash_attention as fa, ln_dense as ld
+from pcdiff_torch.ops import _native, flash_attention as fa, layer_norm as ln, ln_dense as ld
+from pcdiff_torch.ops import ln_mlp as lm
 
 # a CPU forward and a CPU sampler run go through the plain versions: no build, no launch
 from pcdiff_torch.core import init_params
@@ -46,6 +47,17 @@ s = PointCloudSampler([BoundTwoStream(m)], [diffusion_from_betas()], [16],
 out = s.sample_batch(2, {"class_labels": torch.tensor([1, 2])}, g)
 assert out.shape == (2, 16, 3) and torch.isfinite(out).all()
 
+# the fully fused configuration (whole-MLP fusion, LayerNorm kernel backend) on the CPU runs
+# the plain versions too
+from pcdiff_torch.models.attention import set_ln_mlp_fusion
+set_ln_mlp_fusion("on")
+ln.set_layernorm_backend("kernel")
+with torch.no_grad():
+    eps, _ = m(torch.zeros(2, 16, 3), torch.tensor([1, 500]), class_labels=torch.tensor([1, 2]))
+assert torch.isfinite(eps).all()
+set_ln_mlp_fusion("off")
+ln.set_layernorm_backend("auto")
+
 # a CPU train step goes through the plain backward versions
 import numpy as np
 from pcdiff_torch.train import create_train_state, make_train_step
@@ -60,6 +72,7 @@ assert not bad, bad
 assert _native._libs == {} and _native.build_seconds == {}, "a kernel was built"
 assert fa.launches == 0 and ld.launches == 0
 assert fa.bwd_launches == 0 and ld.bwd_launches == 0
+assert lm.launches == 0 and ln.launches == 0 and ln.bwd_launches == 0
 print("ok")
 """
 
