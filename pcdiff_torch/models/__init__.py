@@ -1,10 +1,12 @@
 """Neural models of the port: the two-stream denoiser, its encoders and building blocks."""
 
+from ..ops.flash_attention import fused_attention
 from .attention import (
     CrossAttention,
     DecoderLayer,
     EncoderLayer,
     Mlp,
+    dot_product_attention,
     fuse_ln_mlp_enabled,
     set_gelu_impl,
     set_ln_mlp_fusion,
@@ -25,6 +27,8 @@ __all__ = [
     "EncoderLayer",
     "DecoderLayer",
     "Mlp",
+    "dot_product_attention",
+    "fused_attention",
     "set_gelu_impl",
     "set_ln_mlp_fusion",
     "fuse_ln_mlp_enabled",

@@ -5,9 +5,11 @@ TPU (``set_ln_dense_fusion`` on): every pre-LN that feeds projections is fused i
 through :func:`pcdiff_torch.ops.ln_dense.fused_ln_denses`, the attention's 1/sqrt(d) is
 folded into ``wq`` and its bias, and every attention goes through
 :func:`pcdiff_torch.ops.flash_attention.fused_attention_mh` with the heads folded in the
-feature axis. Parameters are fp32 in the ``nn.Linear`` layout; ``dtype`` is the
-activation dtype. Two switches, both off by default as in the JAX package, select the
-fully fused configuration: :func:`set_ln_mlp_fusion` runs each pre-LN MLP whose dropout is
+feature axis, unless its ``attention_fn`` hook is set to another function than
+:func:`dot_product_attention`: then the heads are split to ``[B, H, N, D]`` for the hook
+(:func:`pcdiff_torch.ops.flash_attention.fused_attention`, K7, is the port's own).
+Parameters are fp32 in the ``nn.Linear`` layout; ``dtype`` is the activation dtype. Two
+switches, both off by default as in the JAX package, select the fully fused configuration: :func:`set_ln_mlp_fusion` runs each pre-LN MLP whose dropout is
 inactive as one kernel (:func:`pcdiff_torch.ops.ln_mlp.fused_ln_mlp`), and
 :func:`pcdiff_torch.ops.layer_norm.set_layernorm_backend` sends every standalone
 :class:`LayerNorm` to its kernel. ``module.train()`` turns on the dropout of the JAX
@@ -19,18 +21,19 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Iterator, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_attention import fused_attention_mh
+from ..ops.flash_attention import fused_attention, fused_attention_mh
 from ..ops.layer_norm import fused_layer_norm
 from ..ops.ln_dense import fused_ln_denses
 from ..ops.ln_mlp import fused_ln_mlp
 
 __all__ = [
+    "dot_product_attention",
     "Dense",
     "LayerNorm",
     "CrossAttention",
@@ -52,6 +55,15 @@ LN_EPS = 1e-5  # torch-parity epsilon, as pcdiff.models.attention.LN_EPS
 ENCODER_DROP = 0.1
 
 _GELU_IMPL = "erf"  # erf | tanh
+
+AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Attention with an fp32 softmax over ``[B, H, N, D]``; q pre-scaled. The default
+    ``attention_fn`` of every attention: :class:`CrossAttention` recognises it and keeps the
+    heads folded (K1) instead of calling it."""
+    return fused_attention(q, k, v)
 
 
 def set_gelu_impl(mode: str) -> None:
@@ -190,16 +202,20 @@ class CrossAttention(nn.Module):
     the projections (reference RIN ``CrossAttention``). Output dim = ``dim``. In train
     mode ``attn_drop`` drops the attention output before ``proj`` (the JAX package's
     stand-in for dropping the weights inside the fused kernel). The JAX module's
-    ``proj_drop`` is left out: every caller there sets it to 0."""
+    ``proj_drop`` is left out: every caller there sets it to 0. ``attention_fn`` is the
+    JAX module's hook: :func:`dot_product_attention` (the default) runs the folded-head
+    kernel; any other function gets ``[B, H, N, D]`` heads and returns them so."""
 
     def __init__(self, dim: int, num_heads: int = 16, qkv_bias: bool = False,
                  q_dim: Optional[int] = None, kv_dim: Optional[int] = None,
-                 attn_drop: float = 0.0, dtype: torch.dtype = torch.float32, device=None):
+                 attn_drop: float = 0.0, dtype: torch.dtype = torch.float32, device=None,
+                 attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
         self.attn_drop = attn_drop
         self.dtype = dtype
+        self.attention_fn = attention_fn
         q_dim = q_dim or dim
         kv_dim = kv_dim or dim
         self.wq = Dense(q_dim, dim, qkv_bias, dtype, device)
@@ -226,9 +242,18 @@ class CrossAttention(nn.Module):
                 k2, v2 = _ln_dense_multi(x_kv, kv_ln, [self.wk, self.wv], self.dtype)
             else:
                 k2, v2 = self._raw_kv(x_kv, self.wk), self._raw_kv(x_kv, self.wv)
-        out = dropout(fused_attention_mh(q2, k2, v2, self.num_heads), self.attn_drop,
-                      self.training)
-        return self.proj(out)
+        if self.attention_fn is dot_product_attention:
+            # the default: heads stay folded in the feature axis, no head-split relayout
+            out = fused_attention_mh(q2, k2, v2, self.num_heads)
+        else:
+            out = self.attention_fn(*(self._split_heads(t) for t in (q2, k2, v2)))
+            out = out.transpose(1, 2).reshape(q2.shape)
+        return self.proj(dropout(out, self.attn_drop, self.training))
+
+    def _split_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """[B, N, H*D] -> a [B, H, N, D] view."""
+        b, n, _ = t.shape
+        return t.reshape(b, n, self.num_heads, self.dim // self.num_heads).transpose(1, 2)
 
 
 class Mlp(nn.Module):

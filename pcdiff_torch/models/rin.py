@@ -7,7 +7,10 @@ latent self-conditioning is a no-op at init, and the MLP over the previous laten
 detached (``lax.stop_gradient`` in the JAX package). The backbone's dropout rates are 0,
 as the JAX package's are, so train mode changes nothing here. The RCW blocks run as a
 Python loop: the JAX package's ``scan_blocks`` exists only to cut XLA compile time and has
-no counterpart.
+no counterpart. The ``*attention_fn`` arguments are the JAX package's hooks (the seam of
+:mod:`pcdiff.parallel.xsp`): read and write select the interface attentions, compute the
+latent self-attentions; the default, :func:`~.attention.dot_product_attention`, keeps the
+folded-head kernel.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import CrossAttention, Dense, LayerNorm, Mlp
+from .attention import AttentionFn, CrossAttention, Dense, LayerNorm, Mlp, dot_product_attention
 from .embeddings import timestep_embedding
 
 __all__ = ["ComputeBlock", "ReadBlock", "WriteBlock", "RCWBlock", "DenoiserBackbone"]
@@ -27,9 +30,11 @@ class ComputeBlock(nn.Module):
     """Latent self-attention + MLP (reference ``Compute_Block``)."""
 
     def __init__(self, z_dim: int, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None,
+                 attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
-        self.attn = CrossAttention(z_dim, num_heads, qkv_bias, dtype=dtype, device=device)
+        self.attn = CrossAttention(z_dim, num_heads, qkv_bias, dtype=dtype, device=device,
+                                   attention_fn=attention_fn)
         self.mlp = Mlp(z_dim, int(z_dim * mlp_ratio), dtype=dtype, device=device)
         self.norm_z1 = LayerNorm(z_dim, device=device)
         self.norm_z2 = LayerNorm(z_dim, device=device)
@@ -43,10 +48,11 @@ class ReadBlock(nn.Module):
     """z <- cross-attend(x): pull information from the point stream."""
 
     def __init__(self, z_dim: int, x_dim: int, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None,
+                 attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         self.attn = CrossAttention(z_dim, num_heads, qkv_bias, kv_dim=x_dim, dtype=dtype,
-                                   device=device)
+                                   device=device, attention_fn=attention_fn)
         self.mlp = Mlp(z_dim, int(z_dim * mlp_ratio), dtype=dtype, device=device)
         self.norm_z1 = LayerNorm(z_dim, device=device)
         self.norm_x = LayerNorm(x_dim, device=device)
@@ -61,10 +67,11 @@ class WriteBlock(nn.Module):
     """x <- cross-attend(z): push computed features back to the points."""
 
     def __init__(self, x_dim: int, z_dim: int, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None):
+                 qkv_bias: bool = False, dtype: torch.dtype = torch.float32, device=None,
+                 attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         self.attn = CrossAttention(x_dim, num_heads, qkv_bias, kv_dim=z_dim, dtype=dtype,
-                                   device=device)
+                                   device=device, attention_fn=attention_fn)
         self.mlp = Mlp(x_dim, int(x_dim * mlp_ratio), dtype=dtype, device=device)
         self.norm_x1 = LayerNorm(x_dim, device=device)
         self.norm_z = LayerNorm(z_dim, device=device)
@@ -80,15 +87,19 @@ class RCWBlock(nn.Module):
 
     def __init__(self, z_dim: int, x_dim: int, num_compute_layers: int = 4,
                  num_heads: int = 16, mlp_ratio: float = 4.0, qkv_bias: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 read_attention_fn: AttentionFn = dot_product_attention,
+                 write_attention_fn: AttentionFn = dot_product_attention,
+                 compute_attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         common = dict(num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                       dtype=dtype, device=device)
         self.num_compute_layers = num_compute_layers
-        self.read = ReadBlock(z_dim, x_dim, **common)
+        self.read = ReadBlock(z_dim, x_dim, **common, attention_fn=read_attention_fn)
         for i in range(num_compute_layers):
-            setattr(self, f"compute_{i}", ComputeBlock(z_dim, **common))
-        self.write = WriteBlock(x_dim, z_dim, **common)
+            setattr(self, f"compute_{i}",
+                    ComputeBlock(z_dim, **common, attention_fn=compute_attention_fn))
+        self.write = WriteBlock(x_dim, z_dim, **common, attention_fn=write_attention_fn)
 
     def forward(self, z: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         z = self.read(z, x)
@@ -108,7 +119,10 @@ class DenoiserBackbone(nn.Module):
     def __init__(self, input_channels: int = 3, output_channels: int = 3, num_z: int = 256,
                  num_x: int = 4096, z_dim: int = 768, x_dim: int = 512, num_blocks: int = 6,
                  num_compute_layers: int = 4, num_heads: int = 8, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32, device=None):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32, device=None,
+                 read_attention_fn: AttentionFn = dot_product_attention,
+                 write_attention_fn: AttentionFn = dot_product_attention,
+                 compute_attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         self.num_z, self.num_x, self.z_dim = num_z, num_x, z_dim
         self.num_blocks = num_blocks
@@ -123,7 +137,7 @@ class DenoiserBackbone(nn.Module):
         for i in range(num_blocks):
             setattr(self, f"block_{i}", RCWBlock(
                 z_dim, x_dim, num_compute_layers, num_heads, mlp_ratio, qkv_bias,
-                dtype, device))
+                dtype, device, read_attention_fn, write_attention_fn, compute_attention_fn))
         self.ln_post = LayerNorm(x_dim, dtype=dtype, device=device)
         self.output_proj = Dense(x_dim, output_channels, True, torch.float32, device)
 

@@ -13,7 +13,10 @@ added unmasked and CFG dropout combines a full-batch drop mask with per-modality
 masks, drawn from the generator of
 :func:`pcdiff_torch.models.attention.dropout_generator`. Submodules carry the names of
 the flax parameter tree (``backbone``, ``encoders_<modality>``,
-``token_type_embeddings``).
+``token_type_embeddings``). ``read_/write_/compute_attention_fn`` are the JAX package's
+hooks, handed to the backbone: with :func:`pcdiff_torch.ops.fused_attention` the
+backbone's 36 attentions run K7 in the head-split layout. The parameters are the same
+either way.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .attention import draw_uniform
+from .attention import AttentionFn, dot_product_attention, draw_uniform
 from .encoders import (
     ClassEmbedding,
     DepthMapEncoder,
@@ -54,7 +57,10 @@ class TwoStreamDenoiser(nn.Module):
                  num_heads: int = 8, num_tokens_ppcd: int = 64, num_tokens_depth: int = 32,
                  depth_image_size: int = 512, depth_patch: int = 32,
                  active_modalities: Sequence[str] = ("class", "view", "partial_pcd", "depth"),
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 read_attention_fn: AttentionFn = dot_product_attention,
+                 write_attention_fn: AttentionFn = dot_product_attention,
+                 compute_attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         device = resolve_device(device)
         self.num_points = num_points
@@ -69,7 +75,9 @@ class TwoStreamDenoiser(nn.Module):
             input_channels=input_channels, output_channels=output_channels,
             num_x=num_points, num_z=num_latents, z_dim=latent_dim, x_dim=x_dim,
             num_blocks=num_blocks, num_compute_layers=num_compute_layers,
-            num_heads=num_heads, dtype=dtype, device=device)
+            num_heads=num_heads, dtype=dtype, device=device,
+            read_attention_fn=read_attention_fn, write_attention_fn=write_attention_fn,
+            compute_attention_fn=compute_attention_fn)
         for m in self.active_modalities:
             if m == "class":
                 enc = ClassEmbedding(num_classes, latent_dim, dtype, device)

@@ -1,5 +1,5 @@
-"""Fused multi-head attention over ``[B, N, H*D]`` with the heads folded in the feature
-axis, forward and backward.
+"""Fused attention: multi-head over ``[B, N, H*D]`` with the heads folded in the feature
+axis (forward and backward), and over the head-split ``[B, H, N, D]`` layout (forward).
 
 Counterpart of :func:`pcdiff.ops.flash_attention.fused_attention_mh` and its custom VJP.
 :func:`fused_attention_mh` is a :class:`torch.autograd.Function`. On a CUDA tensor its
@@ -19,6 +19,15 @@ P and ds to bf16 before their products. The plain versions take that rounding as
 ``mxu_dtype``: bf16 for the kernels' class (and for the ``plain`` backend on a CUDA
 tensor), ``q.dtype`` on the CPU, as the JAX package's XLA branch keeps fp32 operands off
 the TPU, so that the fp32 model holds to the JAX model on the CPU.
+
+:func:`fused_attention` is the counterpart of :func:`pcdiff.ops.flash_attention.fused_attention`,
+the attention behind the models' ``attention_fn`` hook. On a CUDA tensor its forward
+launches ``csrc/attention.cu`` (K7; it replaces ``_attn_kernel``), on a CPU tensor it runs
+:func:`_torch_attention`; its backward is the JAX package's ``_bwd`` (plain products there
+too, :func:`_torch_attention_bwd`). K7 keeps the TPU kernel's numerics, which are not the
+multi-head kernel's: nothing is rounded to bf16 that is not bf16 already (fp32 inputs take
+fp32 products), and the weights are normalised by the fp32 row sum before they are rounded
+to v's dtype for PV. :func:`set_attention_backend` governs both kernels.
 """
 
 from __future__ import annotations
@@ -31,9 +40,11 @@ from . import _native
 
 __all__ = [
     "fused_attention_mh",
+    "fused_attention",
     "set_attention_backend",
     "launches",
     "bwd_launches",
+    "k7_launches",
 ]
 
 _BACKEND = "kernel"  # kernel | plain
@@ -41,13 +52,17 @@ _HEAD_DIM = 32  # the kernel's head dim (the flagship's 256 / 8)
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # backward kernel launches, likewise
+k7_launches = 0  # head-split (K7) launches, likewise
+_K7_HEAD_DIMS = (32, 64)  # the head dims K7 is built for
 _fn = None
 _bwd_fn = None
+_k7_fn = None
 
 
 def set_attention_backend(name: str) -> None:
-    """'kernel' (default) launches the CUDA kernels for CUDA tensors; 'plain' runs the
-    plain PyTorch versions on every device (for comparing the two on the card)."""
+    """'kernel' (default) launches the CUDA kernels (K1, K2 and K7) for CUDA tensors;
+    'plain' runs the plain PyTorch versions on every device (for comparing the two on the
+    card)."""
     global _BACKEND
     if name not in ("kernel", "plain"):
         raise ValueError(f"unknown attention backend {name!r}")
@@ -219,3 +234,105 @@ def fused_attention_mh(q, k, v, num_heads: int):
     """softmax(q k^T) v per head over [B, N, H*D] inputs; q pre-scaled. Returns q's dtype.
     Differentiable in q, k and v."""
     return _FusedAttentionMH.apply(q, k, v, num_heads)
+
+
+# --------------------------------------------------------------------------------------
+# Attention in the head-split [B, H, N, D] layout (K7), behind the models' attention_fn hook.
+# --------------------------------------------------------------------------------------
+
+
+def _torch_attention(q, k, v):
+    """Plain version of K7 (``_attn_kernel``) on ``[B, H, N, D]``: fp32 scores, the softmax
+    normalised by the fp32 row sum, the weights rounded to v's dtype, PV accumulated in
+    fp32 and cast to q's dtype. (fp64 inputs compute in fp64, for gradcheck.)"""
+    acc = _acc_dtype(q.dtype)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = p / p.sum(dim=-1, keepdim=True)
+    return torch.matmul(w.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+
+
+def _torch_attention_bwd(q, k, v, g):
+    """The JAX package's ``_bwd``: the softmax recomputed in fp32 (not rounded), g, v, q and
+    k upcast for the products, (dq, dk, dv) cast back to the dtypes of (q, k, v)."""
+    acc = _acc_dtype(q.dtype)
+    q32, k32, v32, g32 = (t.to(acc) for t in (q, k, v, g))
+    w = torch.softmax(torch.matmul(q32, k32.transpose(-1, -2)), dim=-1)
+    dv = torch.matmul(w.transpose(-1, -2), g32)
+    dw = torch.matmul(g32, v32.transpose(-1, -2))
+    ds = w * (dw - (dw * w).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, k32)
+    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _k7_kernel_fn():
+    global _k7_fn
+    if _k7_fn is None:
+        fn = _native.library("attention").pcdiff_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _k7_fn = fn
+    return _k7_fn
+
+
+def _check_split(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, N, D]")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"q, k, v must share one dtype of fp32/bf16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v must be on one device")
+    b, h, nq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if d not in _K7_HEAD_DIMS:
+        raise ValueError(f"the head-split kernel takes head dim {_K7_HEAD_DIMS}, got {d}")
+    if b == 0 or h == 0 or nq == 0 or k.shape[2] == 0:
+        raise ValueError("empty attention")
+
+
+def _launch_split(q, k, v):
+    global k7_launches
+    _check_split(q, k, v)
+    # the kernel takes batch, head and row strides; the D elements of a row must be
+    # contiguous, as they are in the hook's transposed views
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError("q, k, v must have unit stride in their last dimension")
+    out = torch.empty_like(q)  # q's strides: a transposed view stays one, so folding is free
+    b, h, nq, d = q.shape
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    with torch.cuda.device(q.device):
+        err = _k7_kernel_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            b, h, nq, k.shape[2], d, int(q.dtype == torch.bfloat16), *strides,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"attention (head-split) kernel launch failed: cudaError_t {err}")
+    k7_launches += 1
+    return out
+
+
+class _FusedAttention(torch.autograd.Function):
+    """Forward: K7 or its plain version; saves (q, k, v) as the JAX custom VJP does.
+    Backward: the JAX package's ``_bwd``, plain products on every device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if _use_kernel(q):
+            return _launch_split(q, k, v)
+        return _torch_attention(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _torch_attention_bwd(*ctx.saved_tensors, g)
+
+
+def fused_attention(q, k, v):
+    """softmax(q k^T) v with an fp32 softmax over ``[B, H, N, D]`` inputs; q pre-scaled.
+    Returns q's dtype. Differentiable in q, k and v."""
+    return _FusedAttention.apply(q, k, v)

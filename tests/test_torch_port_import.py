@@ -1,5 +1,6 @@
 """The port imports no JAX, and importing it (or running it on the CPU: a sampler run, a
-forward in the fully fused configuration and a train step) builds nothing.
+forward in the fully fused configuration, a forward with the head-split attention hooks, a
+train step and the attention ladder's entry point) builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -24,13 +25,14 @@ import pcdiff_torch.models, pcdiff_torch.models.attention, pcdiff_torch.models.e
 import pcdiff_torch.models.encoders, pcdiff_torch.models.rin, pcdiff_torch.models.two_stream
 import pcdiff_torch.models.wrapper
 import pcdiff_torch.ops, pcdiff_torch.ops.flash_attention, pcdiff_torch.ops.layer_norm
-import pcdiff_torch.ops.ln_dense, pcdiff_torch.ops.ln_mlp
+import pcdiff_torch.ops.ln_dense, pcdiff_torch.ops.ln_mlp, pcdiff_torch.ops.attn_ladder
+import pcdiff_torch.scripts, pcdiff_torch.scripts.attn_profile
 import pcdiff_torch.core.device, pcdiff_torch.data, pcdiff_torch.data.synthetic
 import pcdiff_torch.geometry, pcdiff_torch.geometry.ops
 import pcdiff_torch.train, pcdiff_torch.train.ema, pcdiff_torch.train.state
 import pcdiff_torch.train.step
 from pcdiff_torch.ops import _native, flash_attention as fa, layer_norm as ln, ln_dense as ld
-from pcdiff_torch.ops import ln_mlp as lm
+from pcdiff_torch.ops import attn_ladder as al, ln_mlp as lm
 
 # a CPU forward and a CPU sampler run go through the plain versions: no build, no launch
 from pcdiff_torch.core import init_params
@@ -58,6 +60,22 @@ assert torch.isfinite(eps).all()
 set_ln_mlp_fusion("off")
 ln.set_layernorm_backend("auto")
 
+# the head-split attention hooks on the CPU run K7's plain version
+hooked = TwoStreamDenoiser(num_points=16, num_latents=4, latent_dim=32, x_dim=32,
+                           num_blocks=1, num_compute_layers=1, num_heads=4,
+                           active_modalities=("class",), device="cpu",
+                           **{f"{s}_attention_fn": fa.fused_attention
+                              for s in ("read", "write", "compute")})
+hooked.load_state_dict(m.state_dict())
+with torch.no_grad():
+    eps, _ = hooked(torch.zeros(2, 16, 3), torch.tensor([1, 500]),
+                    class_labels=torch.tensor([1, 2]))
+assert torch.isfinite(eps).all()
+
+# the ladder's entry point on the CPU runs the plain rungs
+from pcdiff_torch.scripts import attn_profile
+attn_profile.main(["--device", "cpu"])
+
 # a CPU train step goes through the plain backward versions
 import numpy as np
 from pcdiff_torch.train import create_train_state, make_train_step
@@ -73,6 +91,7 @@ assert _native._libs == {} and _native.build_seconds == {}, "a kernel was built"
 assert fa.launches == 0 and ld.launches == 0
 assert fa.bwd_launches == 0 and ld.bwd_launches == 0
 assert lm.launches == 0 and ln.launches == 0 and ln.bwd_launches == 0
+assert fa.k7_launches == 0 and al.launches == 0
 print("ok")
 """
 
