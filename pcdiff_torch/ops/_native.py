@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/pcdiff_torch/lib<name>.so`` at the root of the
 checkout (a directory that ``.gitignore`` lists) and loaded with :mod:`ctypes`; it is
-rebuilt when the source is newer than the library. Importing this module builds
-nothing and needs no ``nvcc``: only :func:`library` does, and only the CUDA branch of a
-kernel wrapper calls it. Each source has its own lock, so calls of :func:`library` for
-several sources from several threads run their ``nvcc``s at once.
+rebuilt when the source or any header of ``csrc`` (``*.cuh``, on the include path) is
+newer than the library. Importing this module builds nothing and needs no ``nvcc``: only
+:func:`library` does, and only the CUDA branch of a kernel wrapper calls it. Each source
+has its own lock, so calls of :func:`library` for several sources from several threads run
+their ``nvcc``s at once.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "build_seconds", "build_log", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["library", "stale", "build_seconds", "build_log", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pcdiff_torch"
@@ -52,8 +53,8 @@ def _compile(name: str, src: Path, lib: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stdout}")
@@ -62,15 +63,21 @@ def _compile(name: str, src: Path, lib: Path) -> None:
     build_log[name] = proc.stdout
 
 
+def stale(lib: Path, sources) -> bool:
+    """Whether ``lib`` is missing or older than any of ``sources``."""
+    return not lib.exists() or any(lib.stat().st_mtime < s.stat().st_mtime for s in sources)
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing or stale."""
+    """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing or stale: every
+    ``csrc/*.cuh`` counts as a dependency of every source."""
     with _locks_lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         lib = _libs.get(name)
         if lib is None:
             src, path = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-            if not path.exists() or path.stat().st_mtime < src.stat().st_mtime:
+            if stale(path, [src, *sorted(CSRC_DIR.glob("*.cuh"))]):
                 _compile(name, src, path)
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib

@@ -1,0 +1,117 @@
+"""The arithmetic order of the bf16 attention loop (``pcdiff_torch/csrc/attention_fwd.cuh``)
+against the plain versions, on the CPU, at the flagship's width.
+
+The loop that K1 and K7 share walks the keys in tiles of 64 with an online row max, takes
+its exponentials as ``exp2`` of log2e-scaled scores (one fused multiply-add, one rounding),
+and rounds where its numerics class says: K1 rounds the unnormalised P to bf16 against the
+running max and divides by the fp32 row sum after PV; K7 takes a first sweep for the row max
+and sum and then rounds ``exp2(s log2e - (m log2e + log2 l))``, the normalised weight, to
+bf16. This file repeats that order in torch and holds it to ``_torch_attention_mh(...,
+mxu_dtype=bf16)`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the
+kernels to on the card (``ATTN_ATOL``, ``K7_TOL[bf16]``), with bf16 inputs at 8 heads of 32,
+two rows, the backbone's z, read and write sites and the ragged point-cloud encoder. The
+emulation lives here only; nothing on the port's path calls it.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from pcdiff_torch.ops import flash_attention as fa
+
+torch.set_num_threads(2)
+
+HEADS, D, ROWS, TILE = 8, 32, 2, 64
+LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
+ATTN_ATOL = 2e-2  # chip_smoke.py: K1 against its plain version
+K7_TOL_BF16 = 2e-2  # chip_smoke.py: K7 against its plain version, bf16
+SHAPES = {  # (Nq, Nk): the backbone's sites and the point-cloud encoder (ragged both ways)
+    "z": (643, 643),
+    "read": (643, 1024),
+    "write": (1024, 643),
+    "ppcd encoder": (1025, 1025),
+}
+
+
+def _exp2_fma(s, off):
+    """exp2(fma(s, log2e, -off)) in fp32: the product and the difference rounded once."""
+    return torch.exp2((s.double() * LOG2E.double() - off.double()).float())
+
+
+def _online_stats(q, k):
+    """The online row max and row sum over 64-key tiles, as the loop keeps them."""
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    for k0 in range(0, k.shape[-2], TILE):
+        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        l = l * alpha + _exp2_fma(s, m_new * LOG2E).sum(-1, keepdim=True)
+        m = m_new
+    return m, l
+
+
+def _emulate_k1(q, k, v):
+    """K1's order on [B, H, N, D] fp32 copies of bf16 operands: P rounded to bf16 against the
+    running max, the output rescaled by alpha, divided by the fp32 row sum after PV."""
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], TILE):
+        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        p = _exp2_fma(s, m_new * LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + p.bfloat16().float() @ v[..., k0:k0 + TILE, :]
+        m = m_new
+    return o * (1.0 / l)
+
+
+def _emulate_k7(q, k, v):
+    """K7's order: the row max and sum from a first sweep, then the normalised weights
+    exp2(s log2e - (m log2e + log2 l)) rounded to bf16 and multiplied by V in fp32."""
+    m, l = _online_stats(q, k)
+    c = (m.double() * LOG2E.double() + torch.log2(l).double()).float()
+    o = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], TILE):
+        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+        o = o + _exp2_fma(s, c).bfloat16().float() @ v[..., k0:k0 + TILE, :]
+    return o
+
+
+def _inputs(nq, nk, seed):
+    """chip_smoke.py's inputs: q scaled as a pre-scaled query, k and v standard normal; bf16."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((ROWS, nq, HEADS * D), dtype=np.float32) * (2 / math.sqrt(D))
+    k = rng.standard_normal((ROWS, nk, HEADS * D), dtype=np.float32)
+    v = rng.standard_normal((ROWS, nk, HEADS * D), dtype=np.float32)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v))
+
+
+def _split(t):
+    """[B, N, H*D] -> [B, H, N, D] in fp32."""
+    b, n, _ = t.shape
+    return t.float().reshape(b, n, HEADS, D).transpose(1, 2)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K7"])
+@pytest.mark.parametrize("site", list(SHAPES))
+def test_loop_order_within_card_tolerance(site, kernel):
+    nq, nk = SHAPES[site]
+    q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site))
+    if kernel == "K1":
+        ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16).float()
+        got = _emulate_k1(*(_split(t) for t in (q, k, v)))
+        got = fa._fold(got, q).float()  # the kernel's output in q's dtype, bf16
+        tol = ATTN_ATOL
+    else:
+        qs, ks, vs = (t.reshape(ROWS, t.shape[1], HEADS, D).transpose(1, 2) for t in (q, k, v))
+        ref = fa._torch_attention(qs, ks, vs).float()
+        got = _emulate_k7(*(t.float() for t in (qs, ks, vs))).bfloat16().float()
+        tol = K7_TOL_BF16
+    assert got.shape == ref.shape and torch.isfinite(got).all()
+    err = (got - ref).abs().max().item()
+    assert err <= tol, f"{kernel} {site}: max abs error {err:.3e} > {tol:g}"

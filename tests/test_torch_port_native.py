@@ -1,0 +1,67 @@
+"""The CUDA sources of the port and their build rule, on the CPU (no nvcc).
+
+- ``_native.stale``: a library is rebuilt when its source or a header is newer, and only
+  then, so an edit to ``csrc/attention_fwd.cuh`` rebuilds the three libraries that include it.
+- The attention sources: K1 (``attention_mh.cu``), K7 (``attention.cu``) and the ladder K8
+  (``attention_ladder.cu``) include the one bf16 loop of ``attention_fwd.cuh``; neither K1 nor
+  the ladder has a key loop of its own, and K7's own loops belong to its fp32 kernel alone.
+"""
+
+import os
+import re
+
+import pytest
+
+from pcdiff_torch.ops import _native
+
+ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
+# a loop bounded by the key count (the K/V tile loop of an attention kernel)
+KEY_LOOP = re.compile(r"\bfor\s*\([^;]*;[^;]*\bnk\b")
+
+
+def _touch(path, mtime):
+    path.write_text("// source\n")
+    os.utime(path, (mtime, mtime))
+
+
+@pytest.mark.parametrize("header_age,want", [(+10, True), (-10, False)])
+def test_header_newer_than_library_makes_it_stale(tmp_path, header_age, want):
+    lib, src, header = tmp_path / "libk.so", tmp_path / "k.cu", tmp_path / "loop.cuh"
+    _touch(src, 1_000_000)
+    _touch(lib, 1_000_100)
+    _touch(header, 1_000_100 + header_age)
+    assert _native.stale(lib, [src, header]) is want
+
+
+def test_missing_library_or_newer_source_is_stale(tmp_path):
+    lib, src = tmp_path / "libk.so", tmp_path / "k.cu"
+    _touch(src, 1_000_000)
+    assert _native.stale(lib, [src])
+    _touch(lib, 999_000)
+    assert _native.stale(lib, [src])
+    _touch(lib, 1_000_000)
+    assert not _native.stale(lib, [src])
+
+
+@pytest.mark.parametrize("name", ATTENTION_SOURCES)
+def test_attention_sources_share_one_loop(name):
+    text = (_native.CSRC_DIR / f"{name}.cu").read_text()
+    assert '#include "attention_fwd.cuh"' in text
+    assert (_native.CSRC_DIR / "attention_fwd.cuh").exists()
+    loops = [m.start() for m in KEY_LOOP.finditer(text)]
+    if name != "attention":
+        assert loops == [], f"{name}.cu has a key loop of its own"
+        return
+    # K7 keeps its fp32 FMA loop (two sweeps), and only that: every key loop lies in the
+    # body of the fp32 kernel, which uses no bf16 and no tensor-core instruction
+    start = text.index("head_split_attention_fp32_kernel(const Args a)")
+    end = text.index("\n}\n", start)
+    assert len(loops) == 2 and all(start < i < end for i in loops)
+    assert not re.search(r"bf16|mma|ldmatrix", text[start:end])
+
+
+def test_header_holds_the_bf16_key_loop():
+    text = (_native.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert re.search(r"for \(int t = 0; t < ntiles; \+\+t\)", text)
+    for op in ("mma.sync.aligned.m16n8k16", "ldmatrix", "cp.async.cg", "ex2.approx"):
+        assert op in text, op
