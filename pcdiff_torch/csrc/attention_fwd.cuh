@@ -29,7 +29,13 @@
 //                                        the QK_SUM cut), a second for
 //                                        exp2(s log2e - (m log2e + log2 l)) rounded to bf16
 //                                        and multiplied by V: the weights normalised before
-//                                        they are rounded, as the TPU kernel rounds.
+//                                        they are rounded, as the TPU kernel rounds;
+//   BF16_EXP                             K1 under the bf16 exp switch: a first sweep for
+//                                        the final row max (K only, the QK_MAX cut), then
+//                                        t = bf16(s - m), p = bf16(exp2(t log2e)), the sum
+//                                        of the rounded p and PV, O divided by the fp32 sum
+//                                        after PV: the TPU kernel's roundings, which take
+//                                        the final max, in its order.
 // Ragged edges: query rows past nq are computed on zeros and not stored (a warp whose 16
 // rows all lie past nq skips the arithmetic); keys past nk are zero-filled and their scores
 // set to -inf, so they weigh 0 in the max, the sum and PV.
@@ -41,9 +47,12 @@
 #include <math.h>
 #include <type_traits>
 
+#include "ptx.cuh"
+
 namespace pcdiff_attn {
 
-typedef __nv_bfloat16 bf16;
+using namespace pcdiff_ptx;  // cp.async, ldmatrix, mma.sync, ex2, bf16 packing
+using pcdiff_ptx::bf16;
 
 constexpr int BQ = 128;            // queries per block
 constexpr int BK = 64;             // keys per K/V tile
@@ -53,7 +62,9 @@ constexpr int STAGES = 3;          // K/V tiles in the ring
 constexpr int NT = BK / 8;         // n8 score tiles per key tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-enum Mode { QK = 0, QK_MAX = 1, QK_EXP = 2, QK_SUM = 3, NOMAX = 4, FULL = 5, NORMALISED = 6 };
+enum Mode {
+  QK = 0, QK_MAX = 1, QK_EXP = 2, QK_SUM = 3, NOMAX = 4, FULL = 5, NORMALISED = 6, BF16_EXP = 7
+};
 
 template <int D>
 struct Layout {
@@ -74,52 +85,6 @@ struct Panel {
   long long q_n, k_n, v_n, o_n;
   int nq, nk, q0;
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
-}
-
-// d += a b for one m16n8k16 tile: a the 16 x 16 A fragment, (b0, b1) the 16 x 8 B fragment.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
 
 // Rows [r0, r0 + ROWS) of a panel (row stride `stride`, D contiguous elements) into a
 // [ROWS, LD] bf16 tile; rows past n are zeros. bf16: cp.async, 16 bytes a copy; fp32: two
@@ -163,11 +128,11 @@ struct RowState {
 };
 
 template <int MODE>
-struct Cut {  // what each mode runs of the loop
-  static constexpr bool MAX = MODE != NOMAX && MODE != NORMALISED;
+struct Cut {  // what each mode runs of the loop (the two-sweep modes: their second sweep)
+  static constexpr bool MAX = MODE != NOMAX && MODE != NORMALISED && MODE != BF16_EXP;
   static constexpr bool EXP = MODE >= QK_EXP;
   static constexpr bool SUM = MODE >= QK_EXP && MODE != NORMALISED;
-  static constexpr bool PV = MODE == NOMAX || MODE == FULL || MODE == NORMALISED;
+  static constexpr bool PV = MODE >= NOMAX;
   static constexpr bool RESCALE = MODE == FULL;  // the output accumulator by alpha
 };
 
@@ -264,7 +229,8 @@ __device__ __forceinline__ void tile_step(RowState<D>& st, const bf16* sk, const
     st.m[1] = m_new[1];
   } else {
     // the exponent's offset: the running max (online modes), none (NOMAX), or the final
-    // max and log2 of the final sum (NORMALISED)
+    // max and log2 of the final sum (NORMALISED); BF16_EXP subtracts the final max before
+    // it rounds and scales
     float off[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r)
@@ -274,7 +240,10 @@ __device__ __forceinline__ void tile_step(RowState<D>& st, const bf16* sk, const
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[j][e] = ex2(fmaf(s[j][e], LOG2E, -off[e >> 1]));
+        if constexpr (MODE == BF16_EXP)
+          s[j][e] = round_bf16(ex2(round_bf16(s[j][e] - st.m[e >> 1]) * LOG2E));
+        else
+          s[j][e] = ex2(fmaf(s[j][e], LOG2E, -off[e >> 1]));
         psum[e >> 1] += s[j][e];
       }
     if (MODE == QK_EXP && first_tile) {
@@ -383,6 +352,9 @@ __device__ __forceinline__ void attention_block(const Panel<T>& p, unsigned char
 #pragma unroll
     for (int r = 0; r < 2; ++r) st.c[r] = st.m[r] * LOG2E + log2f(row_sum(st.l[r]));
     sweep<NORMALISED, D>(p, st, ring, active, [] {});
+  } else if constexpr (MODE == BF16_EXP) {
+    sweep<QK_MAX, D>(p, st, ring, active, load_q);
+    sweep<BF16_EXP, D>(p, st, ring, active, [] {});
   } else {
     sweep<MODE, D>(p, st, ring, active, load_q);
   }
@@ -408,7 +380,7 @@ __device__ __forceinline__ void attention_block(const Panel<T>& p, unsigned char
           x = l;
         else if constexpr (MODE == NORMALISED)
           x = st.o[j][e];
-        else  // FULL, NOMAX: the division by the fp32 row sum after PV
+        else  // FULL, NOMAX, BF16_EXP: the division by the fp32 row sum after PV
           x = st.o[j][e] * (1.f / l);
         val[j][e] = x;
       }

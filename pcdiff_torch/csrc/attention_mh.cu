@@ -19,6 +19,11 @@
 // batch row), 8 warps; K/V tiles of 64 keys in a 3-stage cp.async ring (fp32 inputs are
 // rounded to bf16 through registers as they are staged); S, P and the output accumulator
 // in mma.sync fragments, the online max and sum in registers, exp2 of log2e-scaled scores.
+// Under the bf16 exp switch (bf16_exp = 1) the loop runs its BF16_EXP mode instead, the
+// TPU kernel's softmax_dtype=bfloat16 panel: a first sweep over K for the final row max,
+// then t = bf16(s - m), p = bf16(exp2(t log2e)), the fp32 sum of the rounded p, PV and the
+// division after it, so each weight takes the TPU kernel's two roundings against the same
+// max; the extra sweep costs a second pass of Q K^T.
 // The TPU kernel's design of one whole K/V panel per batch row, sized for 128 MB of VMEM,
 // is not carried over. Ragged edges (643, 1025, 257, 255, 127 are multiples of no tile) are
 // masked in the loop.
@@ -36,7 +41,7 @@ using pcdiff_attn::Panel;
 
 constexpr int D = 32;  // head dim
 
-template <typename T>
+template <int MODE, typename T>
 __global__ void __launch_bounds__(pcdiff_attn::THREADS, 2)
 attention_mh_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
@@ -47,15 +52,15 @@ attention_mh_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long qo = (long long)b * nq * hd + h * D, kv = (long long)b * nk * hd + h * D;
   const Panel<T> p{q + qo, k + kv, v + kv, o + qo, hd, hd, hd, hd,
                    nq, nk, (int)blockIdx.x * pcdiff_attn::BQ};
-  pcdiff_attn::attention_block<pcdiff_attn::FULL, D>(p, smem);
+  pcdiff_attn::attention_block<MODE, D>(p, smem);
 }
 
-template <typename T>
+template <int MODE, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int nq, int nk,
            int heads, cudaStream_t s) {
   constexpr int smem = Layout<D>::SMEM;
   const dim3 grid((nq + pcdiff_attn::BQ - 1) / pcdiff_attn::BQ, heads, batch);
-  attention_mh_kernel<T><<<grid, pcdiff_attn::THREADS, smem, s>>>(
+  attention_mh_kernel<MODE, T><<<grid, pcdiff_attn::THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), nq, nk, heads);
   return (int)cudaGetLastError();
@@ -63,18 +68,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 
 }  // namespace
 
-// q, k, v, o: device pointers of one dtype (is_bf16 = 1: bf16, 0: fp32), 16-byte aligned.
-// Returns the cudaError_t of the launch (0 on success). Launches on `stream` and does not
-// synchronise.
+// q, k, v, o: device pointers of one dtype (is_bf16 = 1: bf16, 0: fp32), 16-byte aligned;
+// bf16_exp = 1 selects the bf16 exp mode. Returns the cudaError_t of the launch (0 on
+// success). Launches on `stream` and does not synchronise.
 extern "C" int pcdiff_attention_mh_fwd(const void* q, const void* k, const void* v, void* o,
                                        int batch, int nq, int nk, int heads, int head_dim,
-                                       int is_bf16, void* stream) {
+                                       int is_bf16, int bf16_exp, void* stream) {
   if (head_dim != D || batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 ||
       batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<std::uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(q, k, v, o, batch, nq, nk, heads, s)
-                 : launch<float>(q, k, v, o, batch, nq, nk, heads, s);
+  constexpr int FULL = pcdiff_attn::FULL, EXP = pcdiff_attn::BF16_EXP;
+  if (bf16_exp)
+    return is_bf16 ? launch<EXP, bf16>(q, k, v, o, batch, nq, nk, heads, s)
+                   : launch<EXP, float>(q, k, v, o, batch, nq, nk, heads, s);
+  return is_bf16 ? launch<FULL, bf16>(q, k, v, o, batch, nq, nk, heads, s)
+                 : launch<FULL, float>(q, k, v, o, batch, nq, nk, heads, s);
 }

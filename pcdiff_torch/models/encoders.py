@@ -50,7 +50,11 @@ class Embed(nn.Module):
 
 class PatchConv(nn.Module):
     """flax ``nn.Conv`` with kernel = stride = ``patch`` over NHWC input -> NHWC output.
-    The image size must be a multiple of the patch (flax's SAME padding is then none)."""
+    The image size must be a multiple of the patch (flax's SAME padding is then none).
+    With kernel = stride the windows do not overlap, so the convolution is a reshape into
+    patches and one matmul in ``dtype``: no convolution runs, so cuDNN's TF32 default for
+    fp32 convolutions never applies (an fp32 matmul stays fp32 under PyTorch's default
+    ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
 
     def __init__(self, in_channels: int, out_channels: int, patch: int,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -73,9 +77,12 @@ class PatchConv(nn.Module):
         if x.shape[1] % self.patch or x.shape[2] % self.patch:
             raise ValueError(f"image {tuple(x.shape[1:3])} is not a multiple of the "
                              f"patch {self.patch}")
-        y = F.conv2d(x.permute(0, 3, 1, 2).to(self.dtype), self.weight.to(self.dtype),
-                     self.bias.to(self.dtype), stride=self.patch)
-        return y.permute(0, 2, 3, 1)
+        b, h, w, cin = x.shape
+        p = self.patch
+        patches = (x.to(self.dtype).reshape(b, h // p, p, w // p, p, cin)
+                   .permute(0, 1, 3, 5, 2, 4).reshape(b, h // p, w // p, cin * p * p))
+        weight = self.weight.to(self.dtype).reshape(self.weight.shape[0], cin * p * p)
+        return F.linear(patches, weight, self.bias.to(self.dtype))
 
 
 class ClassEmbedding(nn.Module):

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels of ``pcdiff_torch/csrc``.
+"""Build and load the hand-written CUDA kernels of ``pcdiff_torch/csrc``, and the two
+helpers every kernel wrapper's dispatch uses (:func:`stream`, :func:`needs_grad`).
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/pcdiff_torch/lib<name>.so`` at the root of the
@@ -20,7 +21,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["library", "stale", "build_seconds", "build_log", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["library", "stale", "stream", "needs_grad", "build_seconds", "build_log",
+           "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "pcdiff_torch"
@@ -61,6 +63,23 @@ def _compile(name: str, src: Path, lib: Path) -> None:
     os.replace(tmp, lib)
     build_seconds[name] = time.perf_counter() - t0
     build_log[name] = proc.stdout
+
+
+def stream(device) -> int:
+    """The raw handle of PyTorch's current stream on the CUDA ``device``, for a launch: the
+    kernels run on it and do not synchronise (cheaper than building a ``torch.cuda.Stream``
+    on every launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record an op on ``tensors`` (None entries allowed): the
+    wrappers skip their autograd node when it would not, as when sampling."""
+    import torch
+
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def stale(lib: Path, sources) -> bool:

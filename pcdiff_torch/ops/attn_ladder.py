@@ -86,7 +86,7 @@ def _launch(q, k, v, num_heads: int, rung: str):
     with torch.cuda.device(q.device):
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, k.shape[1],
-            num_heads, _HEAD_DIM, RUNGS.index(rung), torch.cuda.current_stream().cuda_stream)
+            num_heads, _HEAD_DIM, RUNGS.index(rung), _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_ladder kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -95,6 +95,6 @@ def _launch(q, k, v, num_heads: int, rung: str):
 
 def ladder(q, k, v, num_heads: int, rung: str):
     """One rung of the ladder on ``[B, N, H*D]`` inputs (q pre-scaled); bf16 output."""
-    if fa._use_kernel(q):
+    if fa._use_kernel(q, num_heads):
         return _launch(q, k, v, num_heads, rung)
     return _torch_ladder(q, k, v, num_heads, rung)

@@ -20,6 +20,21 @@ P and ds to bf16 before their products. The plain versions take that rounding as
 tensor), ``q.dtype`` on the CPU, as the JAX package's XLA branch keeps fp32 operands off
 the TPU, so that the fp32 model holds to the JAX model on the CPU.
 
+:func:`set_attention_softmax_dtype` is the JAX package's switch of the same name (off by
+default): under ``"bfloat16"`` the forward computes the exponentials as the TPU kernel's
+bf16 exp panel does, t = bf16(s - rowmax(s)) with s in fp32, p = bf16(exp(t)), the row sum
+of the rounded p in fp32, O = p V with bf16 operands and fp32 accumulation, out = O / l. K1
+runs it as a mode of its loop; the backward (K2) ignores the switch, as the JAX backward
+does.
+
+Each kernel has a domain, a pure check of the shapes and dtypes it is built for
+(:func:`_k1_domain`: head dim 32; :func:`_k7_domain`: head dim 32 or 64; both within
+their grids' limits). A CUDA tensor outside it takes the plain version, as the JAX package
+sends such shapes to XLA: K1's plain version, or under the bf16 exp switch
+:func:`_torch_attention_mh_xla`, the XLA twin's numerics (the weights normalised before PV).
+Nothing is caught: a kernel that fails to build or launch raises, and ``_launch`` still
+refuses a shape outside its domain.
+
 :func:`fused_attention` is the counterpart of :func:`pcdiff.ops.flash_attention.fused_attention`,
 the attention behind the models' ``attention_fn`` hook. On a CUDA tensor its forward
 launches ``csrc/attention.cu`` (K7; it replaces ``_attn_kernel``), on a CPU tensor it runs
@@ -42,18 +57,23 @@ __all__ = [
     "fused_attention_mh",
     "fused_attention",
     "set_attention_backend",
+    "set_attention_softmax_dtype",
+    "attention_softmax_dtype",
     "launches",
     "bwd_launches",
     "k7_launches",
 ]
 
 _BACKEND = "kernel"  # kernel | plain
+_SOFTMAX_DTYPE = "float32"  # float32 | bfloat16: the forward's exponentials (K1)
 _HEAD_DIM = 32  # the kernel's head dim (the flagship's 256 / 8)
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # backward kernel launches, likewise
 k7_launches = 0  # head-split (K7) launches, likewise
 _K7_HEAD_DIMS = (32, 64)  # the head dims K7 is built for
+_GRID_YZ = 65535  # a grid's y and z extent: K1/K2 put heads and batch there, K7 query tiles
+_K7_QUERY_TILE = 64  # queries a K7 block, as csrc/attention.cu checks its grid (BQ)
 _fn = None
 _bwd_fn = None
 _k7_fn = None
@@ -67,6 +87,26 @@ def set_attention_backend(name: str) -> None:
     if name not in ("kernel", "plain"):
         raise ValueError(f"unknown attention backend {name!r}")
     _BACKEND = name
+
+
+def set_attention_softmax_dtype(name: str) -> None:
+    """The dtype of the multi-head forward's exponentials, as
+    :func:`pcdiff.ops.flash_attention.set_attention_softmax_dtype`: 'float32' (the default)
+    or 'bfloat16', exp of the bf16-rounded max-subtracted scores, rounded to bf16, with the
+    normalising sum and its reciprocal in fp32. Opt-in and quality-gated in the JAX package
+    (row ``softmax-bf16`` of ``docs/trained_gates.json``)."""
+    global _SOFTMAX_DTYPE
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown attention softmax dtype {name!r}")
+    _SOFTMAX_DTYPE = name
+
+
+def attention_softmax_dtype() -> str:
+    return _SOFTMAX_DTYPE
+
+
+def _exp_dtype():
+    return torch.bfloat16 if _SOFTMAX_DTYPE == "bfloat16" else torch.float32
 
 
 def _acc_dtype(mxu_dtype):
@@ -87,14 +127,35 @@ def _fold(t, like):
     return t.transpose(1, 2).reshape(b, n, h * d).to(like.dtype)
 
 
-def _torch_attention_mh(q, k, v, num_heads: int, mxu_dtype=torch.bfloat16):
-    """Plain version of the forward kernel: per-head softmax(q k^T) v with its casts."""
+def _bf16_exp(s):
+    """The bf16 exp panel: exp(bf16(s - rowmax(s))) rounded to bf16, in s's dtype."""
+    return torch.exp((s - s.amax(dim=-1, keepdim=True)).to(torch.bfloat16)).to(s.dtype)
+
+
+def _torch_attention_mh(q, k, v, num_heads: int, mxu_dtype=torch.bfloat16,
+                        exp_dtype=torch.float32):
+    """Plain version of the forward kernel: per-head softmax(q k^T) v with its casts.
+    ``exp_dtype=torch.bfloat16`` is the bf16 exp mode (:func:`set_attention_softmax_dtype`):
+    the row sum adds the rounded weights, and the division still comes after PV."""
     qh, kh, vh = (_heads(t, num_heads, mxu_dtype) for t in (q, k, v))
     s = torch.matmul(qh, kh.transpose(-1, -2))  # [B, H, Nq, Nk]
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    if exp_dtype == torch.bfloat16:
+        p = _bf16_exp(s)
+    else:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     recip = 1.0 / p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(mxu_dtype).to(s.dtype), vh) * recip
     return _fold(o, q)
+
+
+def _torch_attention_mh_xla(q, k, v, num_heads: int, mxu_dtype):
+    """The JAX package's ``_xla_attention_mh`` under the bf16 exp switch, the fallback off
+    K1's domain: the bf16 exp panel, the weights normalised by their fp32 row sum and
+    rounded to ``mxu_dtype`` before PV."""
+    qh, kh, vh = (_heads(t, num_heads, mxu_dtype) for t in (q, k, v))
+    p = _bf16_exp(torch.matmul(qh, kh.transpose(-1, -2)))
+    w = p / p.sum(dim=-1, keepdim=True)
+    return _fold(torch.matmul(w.to(mxu_dtype).to(p.dtype), vh), q)
 
 
 def _torch_attention_mh_bwd(q, k, v, g, num_heads: int, mxu_dtype=torch.bfloat16):
@@ -119,7 +180,7 @@ def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _native.library("attention_mh").pcdiff_attention_mh_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -143,6 +204,8 @@ def _check(q, k, v, num_heads: int) -> None:
         raise ValueError(f"the kernel takes head dim {_HEAD_DIM}, got {hd}/{num_heads}")
     if b == 0 or nq == 0 or k.shape[1] == 0:
         raise ValueError("empty attention")
+    if b > _GRID_YZ:
+        raise ValueError(f"the kernel takes a batch of at most {_GRID_YZ}, got {b}")
 
 
 def _launch(q, k, v, num_heads: int):
@@ -154,7 +217,7 @@ def _launch(q, k, v, num_heads: int):
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, nq, k.shape[1], num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            int(_SOFTMAX_DTYPE == "bfloat16"), _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -187,7 +250,7 @@ def _launch_bwd(q, k, v, g, num_heads: int):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             b, nq, k.shape[1], num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh_bwd kernel launch failed: cudaError_t {err}")
     bwd_launches += 1
@@ -200,10 +263,35 @@ def _plain_mxu(q):
     return torch.bfloat16 if q.device.type == "cuda" else q.dtype
 
 
-def _use_kernel(q) -> bool:
+def _on_card(q) -> bool:
+    """Whether the kernel backend applies to q's device (raises on a device with neither
+    path)."""
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention path for device {q.device}")
     return q.device.type == "cuda" and _BACKEND == "kernel"
+
+
+def _k1_domain(q, num_heads: int) -> bool:
+    """K1's and K2's domain, checked before any launch: [B, N, H*D] fp32 or bf16 queries
+    with head dim 32 (the flagship's 256 / 8) and a batch that fits the grid's z extent."""
+    hd = q.shape[-1]
+    return (q.dim() == 3 and q.dtype in (torch.float32, torch.bfloat16) and q.numel() > 0
+            and num_heads > 0 and hd % num_heads == 0 and hd // num_heads == _HEAD_DIM
+            and q.shape[0] <= _GRID_YZ)
+
+
+def _use_kernel(q, num_heads: int) -> bool:
+    return _on_card(q) and _k1_domain(q, num_heads)
+
+
+def _forward_mh(q, k, v, num_heads: int):
+    """K1, its plain version, or off K1's domain under the bf16 exp switch the XLA twin's."""
+    if _use_kernel(q, num_heads):
+        return _launch(q, k, v, num_heads)
+    if _SOFTMAX_DTYPE == "bfloat16" and not _k1_domain(q, num_heads):
+        return _torch_attention_mh_xla(q, k, v, num_heads, _plain_mxu(q))
+    return _torch_attention_mh(q, k, v, num_heads, mxu_dtype=_plain_mxu(q),
+                               exp_dtype=_exp_dtype())
 
 
 class _FusedAttentionMH(torch.autograd.Function):
@@ -214,15 +302,13 @@ class _FusedAttentionMH(torch.autograd.Function):
     def forward(ctx, q, k, v, num_heads: int):
         ctx.num_heads = num_heads
         ctx.save_for_backward(q, k, v)
-        if _use_kernel(q):
-            return _launch(q, k, v, num_heads)
-        return _torch_attention_mh(q, k, v, num_heads, mxu_dtype=_plain_mxu(q))
+        return _forward_mh(q, k, v, num_heads)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
-        if _use_kernel(q):
+        if _use_kernel(q, ctx.num_heads):
             dq, dk, dv = _launch_bwd(q, k, v, g, ctx.num_heads)
         else:
             dq, dk, dv = _torch_attention_mh_bwd(q, k, v, g, ctx.num_heads,
@@ -233,6 +319,8 @@ class _FusedAttentionMH(torch.autograd.Function):
 def fused_attention_mh(q, k, v, num_heads: int):
     """softmax(q k^T) v per head over [B, N, H*D] inputs; q pre-scaled. Returns q's dtype.
     Differentiable in q, k and v."""
+    if not _native.needs_grad(q, k, v):
+        return _forward_mh(q, k, v, num_heads)
     return _FusedAttentionMH.apply(q, k, v, num_heads)
 
 
@@ -293,6 +381,9 @@ def _check_split(q, k, v) -> None:
         raise ValueError(f"the head-split kernel takes head dim {_K7_HEAD_DIMS}, got {d}")
     if b == 0 or h == 0 or nq == 0 or k.shape[2] == 0:
         raise ValueError("empty attention")
+    if -(-nq // _K7_QUERY_TILE) > _GRID_YZ or b * h >= 2**31:
+        raise ValueError(f"the head-split kernel takes at most {_K7_QUERY_TILE * _GRID_YZ} "
+                         f"queries and 2^31 - 1 (batch, head) pairs, got {tuple(q.shape)}")
 
 
 def _launch_split(q, k, v):
@@ -309,11 +400,27 @@ def _launch_split(q, k, v):
         err = _k7_kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, h, nq, k.shape[2], d, int(q.dtype == torch.bfloat16), *strides,
-            torch.cuda.current_stream().cuda_stream)
+            _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention (head-split) kernel launch failed: cudaError_t {err}")
     k7_launches += 1
     return out
+
+
+def _k7_domain(q) -> bool:
+    """K7's domain, checked before any launch: [B, H, N, D] fp32 or bf16 with D = 32 or
+    64, unit stride along D, and query tiles and (batch, head) pairs that fit its grid."""
+    return (q.dim() == 4 and q.dtype in (torch.float32, torch.bfloat16) and q.numel() > 0
+            and q.shape[-1] in _K7_HEAD_DIMS and q.stride(-1) == 1
+            and -(-q.shape[2] // _K7_QUERY_TILE) <= _GRID_YZ
+            and q.shape[0] * q.shape[1] < 2**31)
+
+
+def _forward_split(q, k, v):
+    """K7 or its plain version."""
+    if _on_card(q) and _k7_domain(q):
+        return _launch_split(q, k, v)
+    return _torch_attention(q, k, v)
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -323,9 +430,7 @@ class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if _use_kernel(q):
-            return _launch_split(q, k, v)
-        return _torch_attention(q, k, v)
+        return _forward_split(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -335,4 +440,6 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(q, k, v):
     """softmax(q k^T) v with an fp32 softmax over ``[B, H, N, D]`` inputs; q pre-scaled.
     Returns q's dtype. Differentiable in q, k and v."""
+    if not _native.needs_grad(q, k, v):
+        return _forward_split(q, k, v)
     return _FusedAttention.apply(q, k, v)

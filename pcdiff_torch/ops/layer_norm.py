@@ -143,7 +143,7 @@ def _launch(x, scale, bias, eps, out_dtype):
         err = _kernel_fn("pcdiff_layer_norm_fwd")(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, c,
             float(eps), _DTYPE_CODES[x.dtype], _DTYPE_CODES[out_dtype],
-            torch.cuda.current_stream().cuda_stream)
+            _native.stream(x.device))
     if err:
         raise RuntimeError(f"layer_norm kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -164,7 +164,7 @@ def _launch_bwd(x, scale, g, eps):
         err = _kernel_fn("pcdiff_layer_norm_bwd")(
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
             dbias.data_ptr(), part.data_ptr(), rows, c, float(eps), _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[g.dtype], torch.cuda.current_stream().cuda_stream)
+            _DTYPE_CODES[g.dtype], _native.stream(x.device))
     if err:
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: cudaError_t {err}")
     bwd_launches += 1

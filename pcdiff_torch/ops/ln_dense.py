@@ -19,14 +19,26 @@ activation on the fp32 accumulator, one cast out. ``gelu`` is the exact-erf form
 ``_erf_f32``, XLA's erf rational that the TPU kernel reproduces. In the backward,
 g * act'(z) is rounded to the product dtype before its products, the bias gradient is
 summed from it before that rounding, and the parameter gradients are fp32.
+
+The forward kernel takes W in the product dtype: for a bf16 output the wrapper casts each
+fp32 weight to bf16 before the launch, as the JAX wrapper casts its kernels
+(:func:`_product_weight`, once per version of the parameter), so no block converts W.
+
+Both kernels have one domain (:func:`_in_domain`: fp32 or bf16, 0 < C <= 256 with
+C % 32 == 0, fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), a pure check made
+before any launch. A CUDA tensor outside it takes the plain versions, as the JAX package's
+``use_ln_dense`` sends such shapes to XLA; nothing is caught, and ``_launch`` still refuses
+a shape outside it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _native
 
@@ -39,12 +51,20 @@ __all__ = [
 
 _BACKEND = "kernel"  # kernel | plain
 _ACT_CODES = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
+_DTYPES = (torch.float32, torch.bfloat16)
 _MAX_C = 256
 _TILE_F = 64
+_MAX_ROWS = 2**31 - 1  # the C interface's int rows
+# a block's LayerNorm prologue counted in output tiles of work (128 x 128: a bf16 tile is a
+# short tensor-core product with an epilogue, an fp32 tile a long FMA one)
+_LN_TILES = {torch.bfloat16: 0.5, torch.float32: 0.25}
+# the bf16 copies of fp32 weights (:func:`_product_weight`), held while the weight lives
+_W_BF16 = WeakIdKeyDictionary()
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # backward kernel launches, likewise
 _fn = None
+_tiling_fn = None
 _bwd_fn = None
 
 # XLA's f32 erf rational (xla/client/lib/math.cc ErfImpl32), as pcdiff/ops/ln_dense.py.
@@ -183,16 +203,83 @@ def _kernel_fn():
         ints = ctypes.POINTER(ctypes.c_int)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ptrs, ptrs, ptrs, ints, ints,
                                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                                               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
 
 
+def _product_weight(w):
+    """``w`` (fp32 ``[F, C]``) in bf16 for the bf16 path. The copy is kept in ``_W_BF16``,
+    keyed weakly on the tensor itself, and taken again while the tensor's storage and
+    version counter are unchanged, so a parameter is cast once until an in-place update (an
+    optimizer step, ``copy_``, a ``load_state_dict``) moves its version; writes through
+    ``.data`` bypass the counter and are not seen. An inference tensor, which has no
+    counter, is cast every call."""
+    if w.is_inference():
+        return w.to(torch.bfloat16)
+    key = (w.data_ptr(), w._version)
+    cached = _W_BF16.get(w)
+    if cached is None or cached[0] != key:
+        cached = (key, w.detach().to(torch.bfloat16))
+        _W_BF16[w] = cached
+    return cached[1]
+
+
+def _tiling_kernel_fn():
+    global _tiling_fn
+    if _tiling_fn is None:
+        fn = _native.library("ln_dense").pcdiff_ln_denses_tiling
+        ip = ctypes.POINTER(ctypes.c_int)
+        fn.argtypes = [ctypes.c_int] * 3 + [ip] * 3
+        fn.restype = ctypes.c_int
+        _tiling_fn = fn
+    return _tiling_fn
+
+
+@functools.lru_cache(maxsize=None)
+def _tiling(device: int, x_dtype, out_dtype, c: int) -> tuple:
+    """(rows a block, columns a tile, blocks the card holds at once) of the forward kernel's
+    instantiation at width ``c`` on CUDA device ``device``: the first two from the kernel's
+    own constants, the last from its occupancy at the launch's shared memory times the
+    card's SM count."""
+    bm, bn, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _tiling_kernel_fn()(int(x_dtype == torch.bfloat16),
+                                  int(out_dtype == torch.bfloat16), c, ctypes.byref(bm),
+                                  ctypes.byref(bn), ctypes.byref(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError(f"ln_dense tiling query failed: cudaError_t {err}, "
+                           f"{per_sm.value} blocks an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bm.value, bn.value, per_sm.value * sms
+
+
+@functools.lru_cache(maxsize=1024)
+def _groups(rows: int, fs: tuple, bm: int, bn: int, slots: int, ln_tiles: float) -> int:
+    """How many column groups the forward kernel splits the outputs' tiles into, one block
+    per (``bm``-row tile, group), each recomputing its rows' LayerNorm (``ln_tiles`` tiles
+    of work): the count that minimises waves x (tiles a block + its LayerNorm) over the
+    ``slots`` blocks the card holds at once, the fewest groups on a tie."""
+    tiles = sum(-(-f // bn) for f in fs)
+    row_tiles = -(-rows // bm)
+    cost = {g: -(-row_tiles * g // slots) * (-(-tiles // g) + ln_tiles)
+            for g in range(1, tiles + 1)}
+    return min(cost, key=lambda g: (cost[g], g))
+
+
+def _column_groups(x, fs: tuple, out_dtype) -> int:
+    """The column groups of a launch on ``x`` (:func:`_groups` on the card's tiling)."""
+    c = x.shape[-1]
+    bm, bn, slots = _tiling(x.device.index, x.dtype, out_dtype, c)
+    return _groups(x.numel() // c, fs, bm, bn, slots, _LN_TILES[out_dtype])
+
+
 def _check_param(t, shape, device, what):
     if t.dtype != torch.float32 or not t.is_contiguous() or t.device != device:
         raise ValueError(f"{what} must be a contiguous fp32 tensor on {device}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
 
 
@@ -208,9 +295,9 @@ def _check(x, scale, bias, weights, biases, out_dtype, acts):
         raise ValueError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
-    if c % 32 or not 0 < c <= _MAX_C or rows == 0:
-        raise ValueError(f"the kernel takes 0 < C <= {_MAX_C} with C % 32 == 0 and rows > 0, "
-                         f"got x {tuple(x.shape)}")
+    if c % 32 or not 0 < c <= _MAX_C or not 0 < rows <= _MAX_ROWS:
+        raise ValueError(f"the kernel takes 0 < C <= {_MAX_C} with C % 32 == 0 and 0 < rows "
+                         f"<= {_MAX_ROWS}, got x {tuple(x.shape)}")
     if any(a not in _ACT_CODES for a in acts):
         raise ValueError(f"unknown activation in {acts!r}")
     dev = x.device
@@ -226,13 +313,20 @@ def _check(x, scale, bias, weights, biases, out_dtype, acts):
     return rows, c
 
 
-def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
+def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts, groups=None):
+    """K3 on the card; ``groups`` (the column groups) defaults to :func:`_column_groups`'s
+    and is set only by ``chip_smoke.py``'s timing of one group."""
     global launches
     n = len(weights)
     rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
     dev = x.device
     outs = [torch.empty(x.shape[:-1] + (w.shape[0],), dtype=out_dtype, device=dev)
             for w in weights]
+    fs = tuple(w.shape[0] for w in weights)
+    if groups is None:
+        groups = _column_groups(x, fs, out_dtype)
+    if out_dtype == torch.bfloat16:
+        weights = [_product_weight(w) for w in weights]
     vp = ctypes.c_void_p * 3
     ci = ctypes.c_int * 3
     pad = [None] * (3 - n)
@@ -242,10 +336,10 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts):
             vp(*[w.data_ptr() for w in weights], *pad),
             vp(*[None if b is None else b.data_ptr() for b in biases], *pad),
             vp(*[o.data_ptr() for o in outs], *pad),
-            ci(*[w.shape[0] for w in weights], *([0] * (3 - n))),
+            ci(*fs, *([0] * (3 - n))),
             ci(*[_ACT_CODES[a] for a in acts], *([0] * (3 - n))),
             rows, c, float(eps), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(out_dtype == torch.bfloat16), groups, _native.stream(dev))
     if err:
         raise RuntimeError(f"ln_dense kernel launch failed: cudaError_t {err}")
     launches += 1
@@ -324,17 +418,42 @@ def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
             dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ptrs(dws), ptrs(dbs),
             stats.data_ptr(), ptrs(gz), ln_part.data_ptr(), ptrs(dw_part), ptrs(db_part),
             ints(splits), rows, c, float(eps), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            int(out_dtype == torch.bfloat16), _native.stream(dev))
     if err:
         raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
     bwd_launches += 1
     return dx, dscale, dbias, dws, dbs
 
 
-def _use_kernel(x) -> bool:
+def _in_domain(x, weights, out_dtype) -> bool:
+    """K3's and K4's domain, checked before any launch: fp32 or bf16 ``x [..., C]`` and
+    output, 0 < C <= 256 with C % 32 == 0, 0 < rows < 2^31, and 1 to 3 weights ``[F, C]``
+    with F % 64 == 0."""
+    c = x.shape[-1] if x.dim() else 0
+    return (x.dim() >= 2 and x.dtype in _DTYPES and out_dtype in _DTYPES and x.numel() > 0
+            and 0 < c <= _MAX_C and c % 32 == 0 and x.numel() // c <= _MAX_ROWS
+            and 1 <= len(weights) <= 3
+            and all(w.dim() == 2 and w.shape[0] > 0 and w.shape[0] % _TILE_F == 0
+                    for w in weights))
+
+
+def _on_card(x) -> bool:
+    """Whether the kernel backend applies to x's device (raises on a device with neither
+    path)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LN+Dense path for device {x.device}")
     return x.device.type == "cuda" and _BACKEND == "kernel"
+
+
+def _use_kernel(x, weights, out_dtype) -> bool:
+    return _on_card(x) and _in_domain(x, weights, out_dtype)
+
+
+def _forward(x, scale, bias, weights, biases, eps, out_dtype, acts):
+    """K3 or its plain version."""
+    if _use_kernel(x, weights, out_dtype):
+        return _launch(x, scale, bias, weights, biases, eps, out_dtype, acts)
+    return _torch_ln_denses(x, scale, bias, weights, biases, eps, out_dtype, acts)
 
 
 class _FusedLnDenses(torch.autograd.Function):
@@ -347,11 +466,7 @@ class _FusedLnDenses(torch.autograd.Function):
         ctx.eps, ctx.out_dtype, ctx.acts, ctx.n = eps, out_dtype, acts, n
         ctx.has_bias = tuple(b is not None for b in biases)
         ctx.save_for_backward(x, scale, bias, *weights, *[b for b in biases if b is not None])
-        if _use_kernel(x):
-            outs = _launch(x, scale, bias, weights, biases, eps, out_dtype, acts)
-        else:
-            outs = _torch_ln_denses(x, scale, bias, weights, biases, eps, out_dtype, acts)
-        return tuple(outs)
+        return tuple(_forward(x, scale, bias, weights, biases, eps, out_dtype, acts))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -360,7 +475,7 @@ class _FusedLnDenses(torch.autograd.Function):
         weights, present = rest[:n], iter(rest[n:])
         biases = [next(present) if hb else None for hb in ctx.has_bias]
         gs = [g.to(ctx.out_dtype).contiguous() for g in gs]
-        if _use_kernel(x):
+        if _use_kernel(x, weights, ctx.out_dtype):
             dx, dscale, dbias, dws, dbs = _launch_bwd(
                 x, scale, bias, weights, biases, gs, ctx.eps, ctx.out_dtype, ctx.acts)
         else:
@@ -385,5 +500,7 @@ def fused_ln_denses(
     the LN affine, the weights and the biases."""
     weights, biases = tuple(weights), tuple(biases)
     acts = (None,) * len(weights) if acts is None else tuple(acts)
+    if not _native.needs_grad(x, scale, bias, *weights, *biases):
+        return list(_forward(x, scale, bias, weights, biases, eps, out_dtype, acts))
     return list(_FusedLnDenses.apply(x, scale, bias, eps, out_dtype, acts, len(weights),
                                      *weights, *biases))

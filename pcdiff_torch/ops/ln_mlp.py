@@ -6,11 +6,12 @@ Counterpart of :func:`pcdiff.ops.ln_dense.fused_ln_mlp` and its custom VJP.
 launches ``csrc/ln_mlp.cu`` (K5; it replaces the TPU kernel
 ``pcdiff/ops/ln_dense.py::_ln_mlp_kernel``); on a CPU tensor, or under
 ``set_lndense_backend("plain")`` (the switch of the LN+Dense kernels, which the JAX
-package's ``use_ln_mlp`` reads too), it runs :func:`_torch_ln_mlp`, the plain version. The
-backward is ``_mlp_bwd``'s: it recomputes the fc1 stage through K3
-(:func:`pcdiff_torch.ops.ln_dense._launch`), takes fc2's two gradients as products in the
-product dtype with fp32 accumulation (``torch.matmul``; the JAX package computes them
-outside any Pallas kernel too), and the fc1 stage's gradient through K4.
+package's ``use_ln_mlp`` reads too), or outside its domain (:func:`_in_domain`), it runs
+:func:`_torch_ln_mlp`, the plain version. The backward is ``_mlp_bwd``'s: it recomputes
+the fc1 stage through K3 (:func:`pcdiff_torch.ops.ln_dense._launch`), takes fc2's two
+gradients as products in the product dtype with fp32 accumulation (``torch.matmul``; the
+JAX package computes them outside any Pallas kernel too), and the fc1 stage's gradient
+through K4.
 
 Layout: ``w1 [F, C]`` and ``w2 [O, F]``, the ``nn.Linear`` layout (the JAX package's are
 ``[C, F]`` and ``[F, O]``), fp32, and so are their gradients. Numerics, as the TPU
@@ -70,6 +71,13 @@ def _kernel_fn():
     return _fn
 
 
+def _in_domain(x, w1, w2, out_dtype) -> bool:
+    """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` (fp32 or bf16,
+    0 < C <= 256 with C % 32 == 0, F % 64 == 0), and 0 < O <= 256 with O % 32 == 0."""
+    o = w2.shape[0]
+    return ld._in_domain(x, [w1], out_dtype) and 0 < o <= _MAX_O and o % 32 == 0
+
+
 def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
     if x.dim() < 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous [..., C] tensor")
@@ -104,11 +112,18 @@ def _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), out.data_ptr(), rows, c, f, o, ld._ACT_CODES[act],
             float(eps), int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            _native.stream(x.device))
     if err:
         raise RuntimeError(f"ln_mlp kernel launch failed: cudaError_t {err}")
     launches += 1
     return out
+
+
+def _forward(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
+    """K5 or its plain version."""
+    if ld._on_card(x) and _in_domain(x, w1, w2, out_dtype):
+        return _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
+    return _torch_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
 
 
 class _FusedLnMlp(torch.autograd.Function):
@@ -119,16 +134,14 @@ class _FusedLnMlp(torch.autograd.Function):
     def forward(ctx, x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
         ctx.eps, ctx.out_dtype, ctx.act = eps, out_dtype, act
         ctx.save_for_backward(x, scale, bias, w1, b1, w2, b2)
-        if ld._use_kernel(x):
-            return _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
-        return _torch_ln_mlp(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
+        return _forward(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
 
     @staticmethod
     def backward(ctx, g):
         x, scale, bias, w1, b1, w2, b2 = ctx.saved_tensors
         eps, out_dtype, acts = ctx.eps, ctx.out_dtype, [ctx.act]
         g = g.to(out_dtype).contiguous()
-        kernel = ld._use_kernel(x)
+        kernel = ld._use_kernel(x, [w1], out_dtype)
         fwd = ld._launch if kernel else ld._torch_ln_denses
         (a,) = fwd(x, scale, bias, [w1], [b1], eps, out_dtype, acts)  # the recompute
         dw2, db2, g_a = _torch_ln_mlp_fc2_bwd(a, g, w2, out_dtype)
@@ -146,4 +159,6 @@ def fused_ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     ``out_dtype``. ``w1 [F, C]``, ``w2 [O, F]``; both biases are required; ``act`` is None |
     'gelu' | 'gelu_tanh' | 'quick_gelu'. Differentiable in x, the LN affine, the weights and
     the biases."""
+    if not _native.needs_grad(x, scale, bias, w1, b1, w2, b2):
+        return _forward(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)
     return _FusedLnMlp.apply(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act)

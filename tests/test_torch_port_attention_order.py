@@ -6,11 +6,16 @@ its exponentials as ``exp2`` of log2e-scaled scores (one fused multiply-add, one
 and rounds where its numerics class says: K1 rounds the unnormalised P to bf16 against the
 running max and divides by the fp32 row sum after PV; K7 takes a first sweep for the row max
 and sum and then rounds ``exp2(s log2e - (m log2e + log2 l))``, the normalised weight, to
-bf16. This file repeats that order in torch and holds it to ``_torch_attention_mh(...,
-mxu_dtype=bf16)`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the
-kernels to on the card (``ATTN_ATOL``, ``K7_TOL[bf16]``), with bf16 inputs at 8 heads of 32,
-two rows, the backbone's z, read and write sites and the ragged point-cloud encoder. The
-emulation lives here only; nothing on the port's path calls it.
+bf16. K1's bf16 exp mode takes K7's first sweep for the final row max alone, then rounds
+bf16(s - m) and its exp2 to bf16 as the TPU kernel's exp panel does. This file repeats those
+orders in torch and holds them to ``_torch_attention_mh(..., mxu_dtype=bf16[, exp_dtype=
+bf16])`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the kernels
+to on the card (``ATTN_ATOL``, ``K7_TOL[bf16]``), with bf16 inputs at 8 heads of 32,
+two rows, the backbone's z, read and write sites and the ragged point-cloud encoder. With
+fp32 inputs it also holds the bf16 exp mode's order to the mean limit ``chip_smoke.py`` adds
+there (``ATTN_EXP_MEAN``), and shows that the limit fails an order that drops either of the
+mode's two roundings, or K1's default mode. The emulation lives here only; nothing on the
+port's path calls it.
 """
 
 import math
@@ -27,6 +32,7 @@ HEADS, D, ROWS, TILE = 8, 32, 2, 64
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 ATTN_ATOL = 2e-2  # chip_smoke.py: K1 against its plain version
 K7_TOL_BF16 = 2e-2  # chip_smoke.py: K7 against its plain version, bf16
+ATTN_EXP_MEAN = 1e-5  # chip_smoke.py: K1's bf16 exp mode, mean abs error with fp32 inputs
 SHAPES = {  # (Nq, Nk): the backbone's sites and the point-cloud encoder (ragged both ways)
     "z": (643, 643),
     "read": (643, 1024),
@@ -82,13 +88,34 @@ def _emulate_k7(q, k, v):
     return o
 
 
-def _inputs(nq, nk, seed):
-    """chip_smoke.py's inputs: q scaled as a pre-scaled query, k and v standard normal; bf16."""
+def _emulate_k1_bf16_exp(q, k, v, round_t=True, round_p=True):
+    """K1's bf16 exp mode (BF16_EXP): the final row max from a first sweep over K (the
+    QK_MAX cut), then per 64-key tile t = bf16(s - m), p = bf16(exp2(t log2e)) with the
+    product rounded to fp32 once, the rounded p summed in fp32 and multiplied by V in fp32,
+    and the output divided by the fp32 row sum after PV. ``round_t`` / ``round_p`` False
+    drop a rounding (a faulty kernel, for the mean limit's test)."""
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    for k0 in range(0, k.shape[-2], TILE):
+        m = torch.maximum(m, (q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)).amax(-1, True))
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], TILE):
+        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+        t = (s - m).bfloat16().float() if round_t else s - m
+        p = torch.exp2(t * LOG2E)
+        p = p.bfloat16().float() if round_p else p
+        l = l + p.sum(-1, keepdim=True)
+        o = o + p @ v[..., k0:k0 + TILE, :]
+    return o * (1.0 / l)
+
+
+def _inputs(nq, nk, seed, dtype=torch.bfloat16):
+    """chip_smoke.py's inputs: q scaled as a pre-scaled query, k and v standard normal."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((ROWS, nq, HEADS * D), dtype=np.float32) * (2 / math.sqrt(D))
     k = rng.standard_normal((ROWS, nk, HEADS * D), dtype=np.float32)
     v = rng.standard_normal((ROWS, nk, HEADS * D), dtype=np.float32)
-    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    return tuple(torch.from_numpy(a).to(dtype) for a in (q, k, v))
 
 
 def _split(t):
@@ -97,14 +124,17 @@ def _split(t):
     return t.float().reshape(b, n, HEADS, D).transpose(1, 2)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K7"])
+@pytest.mark.parametrize("kernel", ["K1", "K7", "K1 bf16 exp"])
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_loop_order_within_card_tolerance(site, kernel):
     nq, nk = SHAPES[site]
     q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site))
-    if kernel == "K1":
-        ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16).float()
-        got = _emulate_k1(*(_split(t) for t in (q, k, v)))
+    if kernel.startswith("K1"):
+        exp = torch.bfloat16 if kernel == "K1 bf16 exp" else torch.float32
+        emulate = _emulate_k1_bf16_exp if exp == torch.bfloat16 else _emulate_k1
+        ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16,
+                                     exp_dtype=exp).float()
+        got = emulate(*(_split(t) for t in (q, k, v)))
         got = fa._fold(got, q).float()  # the kernel's output in q's dtype, bf16
         tol = ATTN_ATOL
     else:
@@ -115,3 +145,29 @@ def test_loop_order_within_card_tolerance(site, kernel):
     assert got.shape == ref.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     assert err <= tol, f"{kernel} {site}: max abs error {err:.3e} > {tol:g}"
+
+
+VARIANTS = {  # name: (the order, whether it is the mode's)
+    "bf16 exp": (_emulate_k1_bf16_exp, True),
+    "s - m not rounded": (lambda q, k, v: _emulate_k1_bf16_exp(q, k, v, round_t=False), False),
+    "exp not rounded": (lambda q, k, v: _emulate_k1_bf16_exp(q, k, v, round_p=False), False),
+    "default mode": (_emulate_k1, False),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("site", list(SHAPES))
+def test_bf16_exp_mean_limit_tells_the_roundings(site, variant):
+    """fp32 inputs, as phase 15 of chip_smoke.py reads them: the mode's order keeps its mean
+    error against the plain version under ATTN_EXP_MEAN (~3.5e-8 here, where both sum the
+    scores alike), and an order without one of its roundings, or K1's default mode, reads
+    above it (~1.3e-4 to ~3.1e-4)."""
+    nq, nk = SHAPES[site]
+    q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site), dtype=torch.float32)
+    ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16,
+                                 exp_dtype=torch.bfloat16)
+    emulate, sound = VARIANTS[variant]
+    got = fa._fold(emulate(*(_split(t.bfloat16()) for t in (q, k, v))), q)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    mean = (got - ref).abs().mean().item()
+    assert (mean <= ATTN_EXP_MEAN) is sound, f"{variant} {site}: mean abs error {mean:.3e}"

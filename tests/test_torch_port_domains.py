@@ -1,0 +1,277 @@
+"""The port's kernel domains and the dispatch around them, on the CPU (no card, no nvcc).
+
+Each kernel states its domain as a pure check made before any launch:
+``flash_attention._k1_domain`` (K1 and K2: head dim 32, a batch within the grid's z extent),
+``_k7_domain`` (K7: head dim 32 or 64, query tiles within the grid's y extent),
+``ln_dense._in_domain`` (K3 and K4: 0 < C <= 256, C % 32 == 0, fewer than 2^31 rows, 1 to 3
+outputs with F % 64 == 0) and ``ln_mlp._in_domain`` (K5: K3's and 0 < O <= 256,
+O % 32 == 0). A CUDA
+tensor inside the domain launches the kernel; outside it takes the plain version, as the
+JAX package sends such shapes to XLA. Here the card is stood in for by patching the device
+gate (``_on_card``) and each ``_launch`` by a spy, so
+the tests see which path a shape takes; ``_launch``'s own checks still refuse a shape
+outside the domain. Also: the wrapper's bf16 copy of W (cast once per parameter version,
+taken again until an in-place update, held only while the weight lives) and the column
+groups of K3's grid.
+"""
+
+import gc
+
+import pytest
+import torch
+
+from pcdiff_torch.ops import flash_attention as fa
+from pcdiff_torch.ops import ln_dense as ld
+from pcdiff_torch.ops import ln_mlp as lm
+from pcdiff_torch.train import create_train_state
+
+torch.set_num_threads(2)
+
+
+class _Spy:
+    """Stands in for a kernel's ``_launch``: records the call, returns the plain result."""
+
+    def __init__(self, plain):
+        self.calls, self.plain = 0, plain
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.plain(*args, **kwargs)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """CPU tensors take the kernels' branch of every dispatch; each ``_launch`` is a spy."""
+    monkeypatch.setattr(fa, "_on_card", lambda q: True)
+    monkeypatch.setattr(ld, "_on_card", lambda x: True)
+    spies = {
+        "k1": _Spy(lambda q, k, v, h: fa._torch_attention_mh(q, k, v, h, q.dtype)),
+        "k2": _Spy(lambda q, k, v, g, h: fa._torch_attention_mh_bwd(q, k, v, g, h, q.dtype)),
+        "k7": _Spy(fa._torch_attention),
+        "k3": _Spy(lambda *a, **kw: ld._torch_ln_denses(*a)),
+        "k4": _Spy(ld._torch_ln_denses_bwd),
+        "k5": _Spy(lm._torch_ln_mlp),
+    }
+    for mod, name, key in ((fa, "_launch", "k1"), (fa, "_launch_bwd", "k2"),
+                           (fa, "_launch_split", "k7"), (ld, "_launch", "k3"),
+                           (ld, "_launch_bwd", "k4"), (lm, "_launch", "k5")):
+        monkeypatch.setattr(mod, name, spies[key])
+    return spies
+
+
+@pytest.mark.parametrize("hd,heads,dtype,want", [
+    (256, 8, torch.float32, True),     # the flagship: 8 heads of 32
+    (128, 4, torch.bfloat16, True),
+    (128, 8, torch.float32, False),    # synthetic_quality.yaml: head dim 16
+    (32, 4, torch.float32, False),     # smoke.yaml: head dim 8
+    (256, 4, torch.float32, False),    # head dim 64
+    (96, 5, torch.float32, False),     # heads do not divide the width
+    (256, 8, torch.float64, False),    # gradcheck's dtype
+])
+def test_k1_domain(hd, heads, dtype, want):
+    assert fa._k1_domain(torch.zeros(2, 5, hd, dtype=dtype), heads) is want
+
+
+@pytest.mark.parametrize("batch,want", [(65535, True), (65536, False)])
+def test_k1_domain_at_the_grid_edge(batch, want):
+    """K1 and K2 put the batch on the grid's z extent (65535 at most)."""
+    q = torch.zeros(1, 3, 256).expand(batch, 3, 256)  # no memory behind the batch
+    assert fa._k1_domain(q, 8) is want
+
+
+@pytest.mark.parametrize("nq,want", [(64 * 65535, True), (64 * 65535 + 1, False)])
+def test_k7_domain_at_the_grid_edge(nq, want):
+    """K7 puts its 64-query tiles on the grid's y extent (65535 at most)."""
+    q = torch.zeros(1, 2, 1, 32).expand(1, 2, nq, 32)
+    assert fa._k7_domain(q) is want
+
+
+@pytest.mark.parametrize("rows,want", [(2**31 - 1, True), (2**31, False)])
+def test_ln_dense_domain_at_the_row_limit(rows, want):
+    """K3's grid is one-dimensional, so only the C interface's int rows bound it."""
+    x = torch.zeros(1, 1, 32).expand(rows, 1, 32)
+    assert ld._in_domain(x, [torch.zeros(64, 32)], torch.float32) is want
+
+
+@pytest.mark.parametrize("d,transposed,want", [
+    (32, True, True), (64, False, True), (16, True, False), (128, False, False),
+])
+def test_k7_domain(d, transposed, want):
+    q = torch.zeros(2, 7, 3, d)
+    q = q.transpose(1, 2) if transposed else q.permute(0, 2, 1, 3).contiguous()
+    assert fa._k7_domain(q) is want
+    # a row whose D elements are not contiguous is outside K7's domain too
+    assert not fa._k7_domain(torch.zeros(2, 3, d, 7).transpose(-1, -2))
+
+
+@pytest.mark.parametrize("c,fs,dtype,out,want", [
+    (256, (256, 256, 256), torch.bfloat16, torch.bfloat16, True),  # the flagship's qkv
+    (256, (1024,), torch.float32, torch.float32, True),
+    (128, (384, 512), torch.bfloat16, torch.bfloat16, True),       # synthetic_quality.yaml
+    (32, (128,), torch.float32, torch.float32, True),              # smoke.yaml
+    (320, (256,), torch.float32, torch.float32, False),            # C > 256
+    (112, (256,), torch.float32, torch.float32, False),            # C % 32
+    (256, (256, 96), torch.float32, torch.float32, False),         # F % 64
+    (256, (64,) * 4, torch.float32, torch.float32, False),         # four outputs
+    (256, (256,), torch.float64, torch.float64, False),            # gradcheck's dtype
+    (256, (256,), torch.float32, torch.float16, False),
+])
+def test_ln_dense_domain(c, fs, dtype, out, want):
+    x = torch.zeros(2, 3, c, dtype=dtype)
+    assert ld._in_domain(x, [torch.zeros(f, c) for f in fs], out) is want
+
+
+@pytest.mark.parametrize("c,f,o,want", [
+    (256, 1024, 256, True), (128, 512, 128, True), (256, 1024, 512, False),
+    (256, 1024, 48, False), (320, 1024, 256, False), (256, 1000, 256, False),
+])
+def test_ln_mlp_domain(c, f, o, want):
+    x = torch.zeros(2, 3, c)
+    assert lm._in_domain(x, torch.zeros(f, c), torch.zeros(o, f), torch.float32) is want
+
+
+def _attn(b, n, hd, dtype=torch.float32, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, n, hd, generator=g, dtype=dtype).requires_grad_() for _ in range(3)]
+
+
+@pytest.mark.parametrize("hd,heads,kernel", [(256, 8, True), (128, 8, False), (32, 4, False)])
+def test_attention_dispatch_follows_the_domain(card, hd, heads, kernel):
+    q, k, v = _attn(2, 9, hd)
+    out = fa.fused_attention_mh(q, k, v, heads)
+    out.sum().backward()
+    assert (card["k1"].calls, card["k2"].calls) == ((1, 1) if kernel else (0, 0))
+    # the plain version off the domain computes the same function
+    torch.testing.assert_close(out, fa._torch_attention_mh(q, k, v, heads, q.dtype),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("d,kernel", [(32, True), (16, False)])
+def test_head_split_dispatch_follows_the_domain(card, d, kernel):
+    q, k, v = (t.view(2, 9, 4, d).transpose(1, 2) for t in _attn(2, 9, 4 * d))
+    fa.fused_attention(q, k, v)
+    assert card["k7"].calls == int(kernel)
+
+
+@pytest.mark.parametrize("c,fs,kernel", [(256, (256, 256), True), (128, (512,), True),
+                                         (320, (256,), False), (256, (96,), False)])
+def test_ln_dense_dispatch_follows_the_domain(card, c, fs, kernel):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 5, c, generator=g, requires_grad=True)
+    ws = [torch.randn(f, c, generator=g, requires_grad=True) for f in fs]
+    bs = [torch.randn(f, generator=g) for f in fs]
+    outs = ld.fused_ln_denses(x, torch.ones(c), torch.zeros(c), ws, bs, 1e-5, torch.float32,
+                              ["gelu"] * len(fs))
+    sum(o.sum() for o in outs).backward()
+    assert (card["k3"].calls, card["k4"].calls) == ((1, 1) if kernel else (0, 0))
+
+
+@pytest.mark.parametrize("o,kernel", [(256, True), (512, False)])
+def test_ln_mlp_dispatch_follows_the_domain(card, o, kernel):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(2, 5, 256, generator=g)
+    args = (x, torch.ones(256), torch.zeros(256), torch.randn(1024, 256, generator=g) / 16,
+            torch.zeros(1024), torch.randn(o, 1024, generator=g) / 32, torch.zeros(o), 1e-5,
+            torch.float32, "gelu")
+    torch.testing.assert_close(lm.fused_ln_mlp(*args), lm._torch_ln_mlp(*args))
+    assert card["k5"].calls == int(kernel)
+
+
+def test_softmax_switch_off_the_domain_takes_the_xla_twin(card):
+    """Under the bf16 exp switch a shape outside K1's domain computes the JAX XLA twin's
+    function (weights normalised before PV), one inside it K1's plain version."""
+    q, k, v = (t.detach() for t in _attn(2, 9, 128))
+    fa.set_attention_softmax_dtype("bfloat16")
+    try:
+        assert fa.attention_softmax_dtype() == "bfloat16"
+        off = fa.fused_attention_mh(q, k, v, 8)  # head dim 16
+        inside = fa.fused_attention_mh(q, k, v, 4)  # head dim 32: the spy, K1's plain version
+    finally:
+        fa.set_attention_softmax_dtype("float32")
+    torch.testing.assert_close(off, fa._torch_attention_mh_xla(q, k, v, 8, q.dtype),
+                               rtol=0, atol=0)
+    assert card["k1"].calls == 1
+    with pytest.raises(ValueError, match="unknown attention softmax dtype"):
+        fa.set_attention_softmax_dtype("float16")
+    assert inside.shape == q.shape
+
+
+def test_launch_still_refuses_shapes_outside_the_domain():
+    """``_launch`` checks before it builds: a bad shape raises ValueError with no nvcc."""
+    q = torch.zeros(2, 5, 128)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch(q, q, q, 8)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch_bwd(q, q, q, q, 8)
+    with pytest.raises(ValueError, match="head dim"):
+        fa._launch_split(*(t.view(2, 5, 8, 16).transpose(1, 2) for t in (q, q, q)))
+    x = torch.zeros(2, 5, 320)
+    with pytest.raises(ValueError, match="C <= 256"):
+        ld._launch(x, torch.ones(320), torch.zeros(320), [torch.zeros(64, 320)], [None], 1e-5,
+                   torch.float32, [None])
+    with pytest.raises(ValueError, match="O <= 256"):
+        lm._launch(q, torch.ones(128), torch.zeros(128), torch.zeros(512, 128),
+                   torch.zeros(512), torch.zeros(512, 512), torch.zeros(512), 1e-5,
+                   torch.float32, None)
+
+
+def test_product_weight_is_cast_once_a_version():
+    w = torch.nn.Parameter(torch.randn(64, 32))
+    first = ld._product_weight(w)
+    assert first.dtype == torch.bfloat16 and torch.equal(first, w.detach().bfloat16())
+    assert ld._product_weight(w) is first  # unchanged: the same copy
+    with torch.no_grad():
+        w.mul_(2.0)  # an in-place update moves the version
+    second = ld._product_weight(w)
+    assert second is not first and torch.equal(second, w.detach().bfloat16())
+    with torch.no_grad():
+        w.copy_(torch.randn(64, 32))
+    assert torch.equal(ld._product_weight(w), w.detach().bfloat16())
+
+
+def test_product_weight_follows_an_adamw_step():
+    model = torch.nn.Linear(32, 64)
+    state = create_train_state(model, lr=1e-2, device="cpu")
+    before = ld._product_weight(model.weight)
+    model(torch.randn(4, 32)).square().sum().backward()
+    state.apply_gradients()
+    after = ld._product_weight(model.weight)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, model.weight.detach().bfloat16())
+
+
+def test_product_weight_of_an_inference_tensor_is_not_kept():
+    with torch.inference_mode():
+        w = torch.randn(64, 32)
+        got = ld._product_weight(w)
+    assert torch.equal(got, w.bfloat16()) and w not in ld._W_BF16
+
+
+def test_product_weight_is_held_only_while_the_weight_lives():
+    """The copy sits in a weak map beside the parameter, not on it: a pickled or
+    state-dict'd parameter carries no copy, and the copy goes when the parameter does."""
+    w = torch.nn.Parameter(torch.randn(64, 32))
+    ld._product_weight(w)
+    assert w in ld._W_BF16 and not vars(w)
+    before = len(ld._W_BF16)
+    del w
+    gc.collect()
+    assert len(ld._W_BF16) == before - 1
+
+
+H100_SLOTS = {torch.bfloat16: 2 * 132, torch.float32: 132}  # two or one block an SM, 132 SMs
+
+
+@pytest.mark.parametrize("rows,fs,dtype,want", [
+    (64 * 643, (1024,), torch.bfloat16, 4),          # z fc1: 322 row tiles on 264 slots
+    (64 * 1024, (1024,), torch.bfloat16, 1),         # x fc1: 512 row tiles, ~2 full waves
+    (64 * 643, (256, 256, 256), torch.bfloat16, 3),
+    (32 * 643, (1024,), torch.float32, 4),           # 161 row tiles on 132 slots
+    (37, (64,), torch.float32, 1),                   # one partial 128-column tile
+])
+def test_column_groups(rows, fs, dtype, want):
+    """On an H100's tiling (128-row blocks, 128-column tiles; what the kernel's
+    ``pcdiff_ln_denses_tiling`` reports there)."""
+    got = ld._groups(rows, fs, 128, 128, H100_SLOTS[dtype], ld._LN_TILES[dtype])
+    tiles = sum(-(-f // 128) for f in fs)
+    assert got == want and 1 <= got <= tiles

@@ -63,5 +63,16 @@ def test_attention_sources_share_one_loop(name):
 def test_header_holds_the_bf16_key_loop():
     text = (_native.CSRC_DIR / "attention_fwd.cuh").read_text()
     assert re.search(r"for \(int t = 0; t < ntiles; \+\+t\)", text)
+    # the PTX primitives the loop is built from live in ptx.cuh, which the header includes
+    assert '#include "ptx.cuh"' in text
+    text += (_native.CSRC_DIR / "ptx.cuh").read_text()
     for op in ("mma.sync.aligned.m16n8k16", "ldmatrix", "cp.async.cg", "ex2.approx"):
         assert op in text, op
+
+
+def test_ln_dense_grid_is_one_dimensional():
+    """K3 numbers its blocks (row tile, column group) along x alone, so no grid extent of
+    65535 bounds the rows it takes; its wrapper asks the library for the tiling."""
+    text = "".join((_native.CSRC_DIR / n).read_text() for n in ("ln_dense.cu", "ln_dense_fwd.cuh"))
+    assert "blockIdx.y" not in text and "blockIdx.z" not in text and "dim3" not in text
+    assert "pcdiff_ln_denses_tiling" in text
