@@ -243,8 +243,11 @@ def _launch_bwd(q, k, v, g, num_heads: int):
                          f"q's shape {tuple(q.shape)}, got {g.dtype} {tuple(g.shape)}")
     b, nq, _ = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # per (row, head, query): the row max, 1 / row sum and rowsum(dp P), in fp32
-    stats = torch.empty(3, b * num_heads * nq, dtype=torch.float32, device=q.device)
+    # one 16-byte record per (row, head, query): the row max times log2(e), 1 / row sum and
+    # rowsum(dp P), in fp32, and a pad; for fp32 inputs then the bf16 copies of q, g, k, v
+    # that the kernel's first launch writes (2 bytes an element: half a float each)
+    copies = 0 if q.dtype == torch.bfloat16 else q.numel() + k.numel()
+    stats = torch.empty(4 * b * num_heads * nq + copies, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _bwd_kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),

@@ -5,6 +5,8 @@
 - The attention sources: K1 (``attention_mh.cu``), K7 (``attention.cu``) and the ladder K8
   (``attention_ladder.cu``) include the one bf16 loop of ``attention_fwd.cuh``; neither K1 nor
   the ladder has a key loop of its own, and K7's own loops belong to its fp32 kernel alone.
+  The backward K2 (``attention_mh_bwd.cu``) is built on the same primitives of ``ptx.cuh``
+  (``mma.sync``, ``ldmatrix``, ``cp.async``, ``ex2.approx``), with no WMMA and no atomics.
 """
 
 import os
@@ -68,6 +70,18 @@ def test_header_holds_the_bf16_key_loop():
     text += (_native.CSRC_DIR / "ptx.cuh").read_text()
     for op in ("mma.sync.aligned.m16n8k16", "ldmatrix", "cp.async.cg", "ex2.approx"):
         assert op in text, op
+
+
+def test_attention_backward_builds_on_ptx_primitives():
+    text = (_native.CSRC_DIR / "attention_mh_bwd.cu").read_text()
+    assert '#include "attention_fwd.cuh"' in text  # its staging, whose header includes ptx.cuh
+    code = re.sub(r"//[^\n]*", "", text)  # the code, without its comments
+    for call in ("mma_bf16(", "ldmatrix_x4(", "ldmatrix_x4_trans(", "cp_async_16(",
+                 "cp_async_commit(", "cp_async_wait<", "ex2("):
+        assert call in code, call
+    # no WMMA (whose fragments round-trip through shared memory), no atomics, no accurate expf
+    for banned in ("wmma", "<mma.h>", "store_matrix_sync", "atomic", "expf("):
+        assert banned not in code, banned
 
 
 def test_ln_dense_grid_is_one_dimensional():
