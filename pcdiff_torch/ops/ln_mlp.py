@@ -18,6 +18,9 @@ Layout: ``w1 [F, C]`` and ``w2 [O, F]``, the ``nn.Linear`` layout (the JAX packa
 kernel's: the fc1 stage is exactly :func:`pcdiff_torch.ops.ln_dense._torch_ln_denses` (its
 output dtype is the product dtype: bf16 for a bf16 output, fp32 for fp32), fc2 takes
 operands in the product dtype with fp32 accumulation, adds an fp32 ``b2`` and casts once.
+For a bf16 output the kernel takes both weights in bf16, cast once per parameter version by
+K3's cache (:func:`pcdiff_torch.ops.ln_dense._product_weight`), so no block converts a
+weight.
 """
 
 from __future__ import annotations
@@ -107,6 +110,8 @@ def _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
     global launches
     rows, c, f, o = _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act)
     out = torch.empty(x.shape[:-1] + (o,), dtype=out_dtype, device=x.device)
+    if out_dtype == torch.bfloat16:  # the kernel takes the product dtype's weights
+        w1, w2 = ld._product_weight(w1), ld._product_weight(w2)
     with torch.cuda.device(x.device):
         err = _kernel_fn()(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),

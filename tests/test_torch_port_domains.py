@@ -11,10 +11,11 @@ JAX package sends such shapes to XLA. Here the card is stood in for by patching 
 gate (``_on_card``) and each ``_launch`` by a spy, so
 the tests see which path a shape takes; ``_launch``'s own checks still refuse a shape
 outside the domain. Also: the wrapper's bf16 copy of W (cast once per parameter version,
-taken again until an in-place update, held only while the weight lives) and the column
-groups of K3's grid.
+taken again until an in-place update, held only while the weight lives), which K5's bf16
+launch takes too, and the column groups of K3's grid.
 """
 
+import contextlib
 import gc
 
 import pytest
@@ -227,6 +228,47 @@ def test_product_weight_is_cast_once_a_version():
     with torch.no_grad():
         w.copy_(torch.randn(64, 32))
     assert torch.equal(ld._product_weight(w), w.detach().bfloat16())
+
+
+def test_ln_mlp_bf16_launch_takes_the_cached_weight_copies(monkeypatch):
+    """K5's bf16 launch hands the kernel W1 and W2 from ``ld._product_weight``'s cache: cast
+    on the first call, the same copies on the second, cast again after an in-place update;
+    an fp32 launch hands it the fp32 weights themselves. The kernel is stood in for by a
+    function that records the weight pointers it is given."""
+    seen = []
+
+    def kernel(*args):
+        seen.append((args[3], args[5]))  # w1, w2
+        return 0
+
+    monkeypatch.setattr(lm, "_kernel_fn", lambda: kernel)
+    monkeypatch.setattr(lm._native, "stream", lambda device: 0)
+    monkeypatch.setattr(lm.torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(lm, "launches", 0)
+    g = torch.Generator().manual_seed(3)
+    w1 = torch.nn.Parameter(torch.randn(1024, 256, generator=g) / 16)
+    w2 = torch.nn.Parameter(torch.randn(256, 1024, generator=g) / 32)
+    x = torch.randn(2, 5, 256, generator=g)
+
+    def launch(dtype):
+        return lm._launch(x, torch.ones(256), torch.zeros(256), w1, torch.zeros(1024), w2,
+                          torch.zeros(256), 1e-5, dtype, "gelu_tanh")
+
+    launch(torch.bfloat16)  # a miss: both weights cast
+    c1, c2 = ld._W_BF16[w1][1], ld._W_BF16[w2][1]
+    assert seen[0] == (c1.data_ptr(), c2.data_ptr())
+    assert torch.equal(c1, w1.detach().bfloat16()) and torch.equal(c2, w2.detach().bfloat16())
+    launch(torch.bfloat16)  # a hit: the same copies
+    assert seen[1] == seen[0] and ld._W_BF16[w1][1] is c1 and ld._W_BF16[w2][1] is c2
+    with torch.no_grad():
+        w1.mul_(2.0)  # an in-place update of W1 moves its version; W2 is untouched
+    launch(torch.bfloat16)
+    n1 = ld._W_BF16[w1][1]
+    assert n1 is not c1 and torch.equal(n1, w1.detach().bfloat16())
+    assert seen[2] == (n1.data_ptr(), c2.data_ptr())
+    launch(torch.float32)  # the fp32 path reads the fp32 weights
+    assert seen[3] == (w1.data_ptr(), w2.data_ptr())
+    assert lm.launches == 4
 
 
 def test_product_weight_follows_an_adamw_step():

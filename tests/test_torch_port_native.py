@@ -7,6 +7,9 @@
   the ladder has a key loop of its own, and K7's own loops belong to its fp32 kernel alone.
   The backward K2 (``attention_mh_bwd.cu``) is built on the same primitives of ``ptx.cuh``
   (``mma.sync``, ``ldmatrix``, ``cp.async``, ``ex2.approx``), with no WMMA and no atomics.
+- The whole-MLP kernel K5 (``ln_mlp.cu``) is built on K3's loop (``ln_dense_fwd.cuh``) and
+  ``ptx.cuh``: ``wgmma`` for its bf16 products, K3's FMA stage for its fp32 ones, no WMMA;
+  the cuts of its profiling script (``scripts/mlp_cuts.py``) still apply to its source.
 """
 
 import os
@@ -15,6 +18,7 @@ import re
 import pytest
 
 from pcdiff_torch.ops import _native
+from pcdiff_torch.scripts import mlp_cuts
 
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
@@ -90,3 +94,29 @@ def test_ln_dense_grid_is_one_dimensional():
     text = "".join((_native.CSRC_DIR / n).read_text() for n in ("ln_dense.cu", "ln_dense_fwd.cuh"))
     assert "blockIdx.y" not in text and "blockIdx.z" not in text and "dim3" not in text
     assert "pcdiff_ln_denses_tiling" in text
+
+
+def test_whole_mlp_kernel_builds_on_the_ln_dense_loop():
+    text = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
+    assert '#include "ln_dense_fwd.cuh"' in text and '#include "ptx.cuh"' in text
+    code = re.sub(r"//[^\n]*", "", text)  # the code, without its comments
+    # bf16: the panel and epilogue of K3's loop, wgmma from shared memory (fc1) and from
+    # registers (fc2), weights by the TMA; fp32: K3's FMA stage
+    for call in ("panel_start<", "epilogue_bf16<", "wgmma_m64n64k16(", "wgmma_m64n256k16_rs(",
+                 "tma_load_2d(", "fma_stage_fp32<"):
+        assert call in code, call
+    for banned in ("<mma.h>", "wmma::", "wmma", "tf32"):
+        assert banned not in code, banned
+    ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
+    for op in ("wgmma.mma_async.sync.aligned.m64n256k16", "cp.async.bulk.tensor.2d",
+               "mbarrier.try_wait.parity", "setmaxnreg"):
+        assert op in ptx, op
+    # the exhaustive check of its fast division compares it with __fdiv_rn's
+    check = (_native.CSRC_DIR / "act_check.cu").read_text()
+    assert "DivFast{ok}" in check and "DivRn()" in check and "1ull << 32" in check
+
+
+@pytest.mark.parametrize("cut", list(mlp_cuts.CUTS), ids=" / ".join)
+def test_mlp_cuts_apply_to_the_kernel_source(cut):
+    text = mlp_cuts.cut_source(cut)  # raises if a substitution no longer matches once
+    assert text != (_native.CSRC_DIR / "ln_mlp.cu").read_text()
