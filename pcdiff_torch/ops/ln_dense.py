@@ -23,6 +23,9 @@ summed from it before that rounding, and the parameter gradients are fp32.
 The forward kernel takes W in the product dtype: for a bf16 output the wrapper casts each
 fp32 weight to bf16 before the launch, as the JAX wrapper casts its kernels
 (:func:`_product_weight`, once per version of the parameter), so no block converts W.
+The backward kernel has two paths: fp32 outputs (the train step's) take the fp32 W as it
+is, through launches whose weight-gradient row ranges the wrapper plans from the card's
+tiling (:func:`_dw_rows` on :func:`_bwd_tiling_on`); bf16 outputs take the WMMA path.
 
 Both kernels have one domain (:func:`_in_domain`: fp32 or bf16, 0 < C <= 256 with
 C % 32 == 0, fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), a pure check made
@@ -65,7 +68,8 @@ launches = 0  # forward kernel launches since the last reset (chip_smoke.py rese
 bwd_launches = 0  # backward kernel launches, likewise
 _fn = None
 _tiling_fn = None
-_bwd_fn = None
+_bwd_fns: dict = {}
+_bwd_tiling = None
 
 # XLA's f32 erf rational (xla/client/lib/math.cc ErfImpl32), as pcdiff/ops/ln_dense.py.
 _ERF_ALPHA = (0.00022905065861350646, 0.0034082910107109506,
@@ -346,83 +350,185 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts, groups=None):
     return outs
 
 
-def _bwd_kernel_fn():
-    global _bwd_fn
-    if _bwd_fn is None:
-        fn = _native.library("ln_dense_bwd").pcdiff_ln_denses_bwd
+def _bwd_kernel_fn(path: str):
+    """The C entry point of K4's ``path``: "fp32" (fp32 outputs) or "bf16"."""
+    fn = _bwd_fns.get(path)
+    if fn is None:
+        fn = getattr(_native.library("ln_dense_bwd"), f"pcdiff_ln_denses_bwd_{path}")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         ptrs, ints = ctypes.POINTER(vp), ctypes.POINTER(i32)
-        fn.argtypes = [
+        head = [
             vp, vp, vp, i32,                  # x, ln_scale, ln_bias, n_out
             ptrs, ptrs, ptrs, ints, ints,     # w, b, g, f, act
             vp, vp, vp, ptrs, ptrs,           # dx, dscale, dbias, dw, db
-            vp, ptrs, vp, ptrs, ptrs, ints,   # stats, gz, ln_part, dw_part, db_part, dw_split
-            i32, i32, ctypes.c_float, i32, i32, vp,  # rows, c, eps, x_bf16, out_bf16, stream
         ]
+        if path == "fp32":  # dy, gz, ln_part, dw_part, db_part; rows, c, eps, x_bf16, groups,
+            # dw_rows, stream
+            tail = [vp, ptrs, vp, ptrs, ptrs, i32, i32, ctypes.c_float, i32, i32, i32, vp]
+        else:  # stats, gz, ln_part, dw_part, db_part, dw_split; rows, c, eps, x_bf16, stream
+            tail = [vp, ptrs, vp, ptrs, ptrs, ints, i32, i32, ctypes.c_float, i32, vp]
+        fn.argtypes = head + tail
         fn.restype = ctypes.c_int
-        _bwd_fn = fn
-    return _bwd_fn
+        _bwd_fns[path] = fn
+    return fn
 
 
-_ROW_BLOCK = 64  # rows per block of the backward's row pass (csrc/ln_dense_bwd.cu BM)
-_SM_TARGET = 264  # blocks the weight-gradient pass aims for: two per SM of an H100
+def _bwd_tiling_fn():
+    global _bwd_tiling
+    if _bwd_tiling is None:
+        fn = _native.library("ln_dense_bwd").pcdiff_ln_denses_bwd_tiling
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.restype = ctypes.c_int
+        _bwd_tiling = fn
+    return _bwd_tiling
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_tiling_on(device: int) -> tuple:
+    """(tile side, stage depth, blocks the card holds at once) of K4's fp32 weight-gradient
+    launch on CUDA device ``device``: the first two from the kernel's constants (the tile
+    side is also the row tile of its dy and LayerNorm launches), the last from its occupancy
+    times the card's SM count."""
+    tile, depth, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = _bwd_tiling_fn()(ctypes.byref(tile), ctypes.byref(depth), ctypes.byref(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError(f"ln_dense_bwd tiling query failed: cudaError_t {err}, "
+                           f"{per_sm.value} blocks an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return tile.value, depth.value, per_sm.value * sms
+
+
+_DW_FIXED = 2  # a weight-gradient block's fixed work (ring fill, partial tile out), in stages
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_rows(rows: int, fs: tuple, c: int, tile: int, depth: int, slots: int) -> int:
+    """The rows a range of K4's fp32 weight-gradient launch takes, a multiple of ``depth``:
+    one block per (``tile`` x ``tile`` tile of the dW_i, range of rows), the count of ranges
+    that minimises waves x (stages a block + its fixed work) over the ``slots`` blocks the card
+    holds at once, the fewest ranges on a tie."""
+    tiles = sum(-(-f // tile) for f in fs) * -(-c // tile)
+    steps = -(-rows // depth)
+    best = None
+    for n in range(1, steps + 1):
+        per = -(-steps // n)  # stages a range
+        ranges = -(-steps // per)
+        key = (-(-tiles * ranges // slots) * (per + _DW_FIXED), ranges)
+        if best is None or key < best[0]:
+            best = (key, per)
+    return best[1] * depth
+
+
+def _dw_ranges(rows: int, per: int) -> list:
+    """The row ranges ``[lo, hi)`` of the weight-gradient launch, ``per`` rows each: range r
+    is block row ``r`` of the grid (csrc/ln_dense_bwd.cu ln_denses_bwd_dw_kernel)."""
+    return [(lo, min(rows, lo + per)) for lo in range(0, rows, per)]
+
+
+def _bwd_args(ts, n):
+    return (ctypes.c_void_p * 3)(*[None if t is None else t.data_ptr() for t in ts],
+                                 *([None] * (3 - n)))
+
+
+def _bwd_ints(vals, n):
+    return (ctypes.c_int * 3)(*vals, *([0] * (3 - n)))
+
+
+def _launch_bwd_fp32(x, scale, bias, weights, biases, gs, eps, acts, rows, c):
+    """K4's fp32 path: gz (outputs with an activation), dy, the LN backward, dW, the sums."""
+    dev, n = x.device, len(weights)
+    f32 = dict(dtype=torch.float32, device=dev)
+    fs = tuple(w.shape[0] for w in weights)
+    tile, depth, slots = _bwd_tiling_on(dev.index)
+    per = _dw_rows(rows, fs, c, tile, depth, slots)
+    ranges, tiles = len(_dw_ranges(rows, per)), -(-rows // tile)
+    act_fs = tuple(f for f, a in zip(fs, acts) if a is not None)
+    groups = _column_groups(x, act_fs, torch.float32) if act_fs else 1
+    dx = torch.empty_like(x)
+    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
+    dws = [torch.empty(w.shape, **f32) for w in weights]
+    dbs = [None if b is None else torch.empty(f, **f32) for f, b in zip(fs, biases)]
+    # scratch: dy (then y); g act'(z) where there is an activation; the row tiles' partial
+    # dscale/dbias and db; the ranges' partial dW
+    dy = torch.empty(rows, c, **f32)
+    gz = [torch.empty(rows, f, **f32) if a is not None else None for f, a in zip(fs, acts)]
+    ln_part = torch.empty(2, tiles, c, **f32)
+    dw_part = [torch.empty(ranges, f, c, **f32) for f in fs]
+    db_part = [None if b is None else torch.empty(tiles, f, **f32) for f, b in zip(fs, biases)]
+    with torch.cuda.device(dev):
+        err = _bwd_kernel_fn("fp32")(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n,
+            _bwd_args(weights, n), _bwd_args(biases, n), _bwd_args(gs, n), _bwd_ints(fs, n),
+            _bwd_ints([_ACT_CODES[a] for a in acts], n),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), _bwd_args(dws, n),
+            _bwd_args(dbs, n), dy.data_ptr(), _bwd_args(gz, n), ln_part.data_ptr(),
+            _bwd_args(dw_part, n), _bwd_args(db_part, n), rows, c, float(eps),
+            int(x.dtype == torch.bfloat16), groups, per, _native.stream(dev))
+    if err:
+        raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
+    return dx, dscale, dbias, dws, dbs
+
+
+_WMMA_ROWS = 64  # rows per block of the bf16 path's row pass (csrc/ln_dense_bwd.cu wmma_path)
+_WMMA_TARGET = 264  # blocks the bf16 path's weight-gradient pass aims for: two per SM of an H100
 
 
 def _dw_split(rows: int, f: int, c: int) -> int:
-    """How many row ranges the weight-gradient pass of one [F, C] gradient splits into, so
-    that its (F/64) x (C/64) tiles give about two blocks per SM."""
+    """How many row ranges the bf16 path's weight-gradient pass of one [F, C] gradient splits
+    into, so that its (F/64) x (C/64) tiles give about two blocks per SM."""
     tiles = (f // _TILE_F) * max(1, c // _TILE_F)
-    return max(1, min(-(-rows // _ROW_BLOCK), -(-_SM_TARGET // tiles)))
+    return max(1, min(-(-rows // _WMMA_ROWS), -(-_WMMA_TARGET // tiles)))
 
 
-def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
-    global bwd_launches
-    n = len(weights)
-    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
-    dev = x.device
-    for i, (w, g) in enumerate(zip(weights, gs)):
-        if g.dtype != out_dtype or not g.is_contiguous() or g.numel() != rows * w.shape[0]:
-            raise ValueError(f"gradient {i} must be a contiguous {out_dtype} [..., "
-                             f"{w.shape[0]}] tensor, got {g.dtype} {tuple(g.shape)}")
-    mxu = _product_dtype(out_dtype)
+def _launch_bwd_bf16(x, scale, bias, weights, biases, gs, eps, acts, rows, c):
+    """K4's bf16 path: the WMMA row pass, the weight-gradient pass per output, the sums."""
+    dev, n = x.device, len(weights)
     f32 = dict(dtype=torch.float32, device=dev)
-    blocks = -(-rows // _ROW_BLOCK)
+    blocks = -(-rows // _WMMA_ROWS)
     dx = torch.empty_like(x)
     dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
     dws = [torch.empty(w.shape, **f32) for w in weights]
     dbs = [None if b is None else torch.empty(w.shape[0], **f32)
            for w, b in zip(weights, biases)]
-    # scratch: LN (mean, rstd) per row; g * act'(z) in the product dtype where there is an
-    # activation; per-row-block partial sums of dscale/dbias and db; per-range dW partials
+    # scratch: LN (mean, rstd) per row; g * act'(z) in bf16 where there is an activation;
+    # per-row-block partial sums of dscale/dbias and db; per-range dW partials
     stats = torch.empty(rows, 2, **f32)
-    gz = [torch.empty(rows, w.shape[0], dtype=mxu, device=dev) if a is not None else None
-          for w, a in zip(weights, acts)]
+    gz = [torch.empty(rows, w.shape[0], dtype=torch.bfloat16, device=dev) if a is not None
+          else None for w, a in zip(weights, acts)]
     ln_part = torch.empty(2, blocks, c, **f32)
     splits = [_dw_split(rows, w.shape[0], c) for w in weights]
     dw_part = [torch.empty(sp, w.shape[0], c, **f32) for sp, w in zip(splits, weights)]
     db_part = [None if b is None else torch.empty(blocks, w.shape[0], **f32)
                for w, b in zip(weights, biases)]
-
-    def ptrs(ts):
-        return (ctypes.c_void_p * 3)(*[None if t is None else t.data_ptr() for t in ts],
-                                     *([None] * (3 - n)))
-
-    def ints(vals):
-        return (ctypes.c_int * 3)(*vals, *([0] * (3 - n)))
-
     with torch.cuda.device(dev):
-        err = _bwd_kernel_fn()(
+        err = _bwd_kernel_fn("bf16")(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n,
-            ptrs(weights), ptrs(biases), ptrs(gs),
-            ints([w.shape[0] for w in weights]), ints([_ACT_CODES[a] for a in acts]),
-            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), ptrs(dws), ptrs(dbs),
-            stats.data_ptr(), ptrs(gz), ln_part.data_ptr(), ptrs(dw_part), ptrs(db_part),
-            ints(splits), rows, c, float(eps), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), _native.stream(dev))
+            _bwd_args(weights, n), _bwd_args(biases, n), _bwd_args(gs, n),
+            _bwd_ints([w.shape[0] for w in weights], n),
+            _bwd_ints([_ACT_CODES[a] for a in acts], n),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), _bwd_args(dws, n),
+            _bwd_args(dbs, n), stats.data_ptr(), _bwd_args(gz, n), ln_part.data_ptr(),
+            _bwd_args(dw_part, n), _bwd_args(db_part, n), _bwd_ints(splits, n), rows, c,
+            float(eps), int(x.dtype == torch.bfloat16), _native.stream(dev))
     if err:
         raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
-    bwd_launches += 1
     return dx, dscale, dbias, dws, dbs
+
+
+def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
+    """K4 on the card: its fp32 path for fp32 outputs (the train step's), its bf16 path for
+    bf16 ones. One count a call, whatever its launches."""
+    global bwd_launches
+    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
+    for i, (w, g) in enumerate(zip(weights, gs)):
+        if g.dtype != out_dtype or not g.is_contiguous() or g.numel() != rows * w.shape[0]:
+            raise ValueError(f"gradient {i} must be a contiguous {out_dtype} [..., "
+                             f"{w.shape[0]}] tensor, got {g.dtype} {tuple(g.shape)}")
+    path = _launch_bwd_fp32 if out_dtype == torch.float32 else _launch_bwd_bf16
+    out = path(x, scale, bias, weights, biases, gs, eps, acts, rows, c)
+    bwd_launches += 1
+    return out
 
 
 def _in_domain(x, weights, out_dtype) -> bool:

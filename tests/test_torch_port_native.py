@@ -116,6 +116,27 @@ def test_whole_mlp_kernel_builds_on_the_ln_dense_loop():
     assert "DivFast{ok}" in check and "DivRn()" in check and "1ull << 32" in check
 
 
+def test_ln_backward_builds_on_the_ln_dense_loop():
+    """K4's fp32 path: K3's fp32 block with its own epilogue (act' specialised by activation,
+    on the fast division), and dy and dW on the header's FMA stage with K-major operands,
+    streamed by cp.async; partial sums added in a fixed order, with no atomics."""
+    text = (_native.CSRC_DIR / "ln_dense_bwd.cu").read_text()
+    assert '#include "ln_dense_fwd.cuh"' in text and '#include "ptx.cuh"' in text
+    code = re.sub(r"//[^\n]*", "", text)
+    for call in ("block_fp32<TX>(", "act_grad<ACT>(", "DivFast{ok}", "cp_async_16(",
+                 "fma_stage_fp32<2, pcdiff_ln::K_CONTIG, pcdiff_ln::K_MAJOR>(",
+                 "fma_stage_fp32<2, pcdiff_ln::K_MAJOR, pcdiff_ln::K_MAJOR>("):
+        assert call in code, call
+    for banned in ("atomic", "tf32"):
+        assert banned not in code.lower(), banned
+    # every kernel's name holds ln_denses_bwd, so the profile counts it as K4's (none as K3's)
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)", code)
+    assert len(kernels) == 7 and all("ln_denses_bwd" in k and "ln_denses_kernel" not in k
+                                     for k in kernels), kernels
+    check = (_native.CSRC_DIR / "act_check.cu").read_text()
+    assert "act_grad<ACT>(v, pcdiff_ln::DivFast{ok})" in check
+
+
 @pytest.mark.parametrize("cut", list(mlp_cuts.CUTS), ids=" / ".join)
 def test_mlp_cuts_apply_to_the_kernel_source(cut):
     text = mlp_cuts.cut_source(cut)  # raises if a substitution no longer matches once
