@@ -1,5 +1,32 @@
-"""Point-set geometry of the port."""
+"""Point-set geometry of the port: distances and F-scores, FPS, PLY IO and the
+``PointCloud`` container."""
 
-from .ops import chamfer_distance, chamfer_distance_xyz, square_distance
+from .fps import farthest_point_sample, fps
+from .ops import (
+    chamfer_distance,
+    chamfer_distance_color,
+    chamfer_distance_xyz,
+    fscore,
+    fscore_squared,
+    index_points,
+    knn,
+    square_distance,
+)
+from .ply import read_ply, write_ply
+from .point_cloud import PointCloud
 
-__all__ = ["square_distance", "chamfer_distance", "chamfer_distance_xyz"]
+__all__ = [
+    "PointCloud",
+    "write_ply",
+    "read_ply",
+    "square_distance",
+    "chamfer_distance",
+    "chamfer_distance_xyz",
+    "chamfer_distance_color",
+    "fscore",
+    "fscore_squared",
+    "index_points",
+    "knn",
+    "farthest_point_sample",
+    "fps",
+]

@@ -57,6 +57,7 @@ __all__ = [
     "fused_attention_mh",
     "fused_attention",
     "set_attention_backend",
+    "attention_backend",
     "set_attention_softmax_dtype",
     "attention_softmax_dtype",
     "launches",
@@ -87,6 +88,10 @@ def set_attention_backend(name: str) -> None:
     if name not in ("kernel", "plain"):
         raise ValueError(f"unknown attention backend {name!r}")
     _BACKEND = name
+
+
+def attention_backend() -> str:
+    return _BACKEND
 
 
 def set_attention_softmax_dtype(name: str) -> None:

@@ -48,6 +48,7 @@ from . import _native
 __all__ = [
     "fused_ln_denses",
     "set_lndense_backend",
+    "lndense_backend",
     "launches",
     "bwd_launches",
 ]
@@ -86,6 +87,10 @@ def set_lndense_backend(name: str) -> None:
     if name not in ("kernel", "plain"):
         raise ValueError(f"unknown LN+Dense backend {name!r}")
     _BACKEND = name
+
+
+def lndense_backend() -> str:
+    return _BACKEND
 
 
 def _poly(x, coeffs):

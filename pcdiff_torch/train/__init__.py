@@ -8,7 +8,13 @@ from .state import (
     global_norm,
     warmup_cosine_schedule,
 )
-from .step import draw_step_randoms, make_loss_fn, make_train_step
+from .step import (
+    draw_step_randoms,
+    make_device_data_step,
+    make_loss_fn,
+    make_train_step,
+    permute_points,
+)
 
 __all__ = [
     "TrainState",
@@ -19,6 +25,8 @@ __all__ = [
     "ema_update",
     "make_loss_fn",
     "make_train_step",
+    "make_device_data_step",
+    "permute_points",
     "draw_step_randoms",
     "global_norm",
 ]

@@ -13,6 +13,9 @@ package's default and the one path ported):
 - epsilon-MSE plus the chamfer-XYZ term gated by a flag;
 - ``backward``, the AdamW update and ``grad_norm``, the global norm of the raw gradients.
 
+:func:`make_device_data_step` takes its batch from a dataset held on the device, by an
+index row, and permutes each target's points on the device first.
+
 Every random draw of a step comes from one explicit generator, in this order: t, noise,
 the coin (:func:`draw_step_randoms`), then the dropout masks. The loss takes t, noise and
 the coin as arguments, so that a test can hand it the JAX package's draws. The coin is
@@ -32,7 +35,8 @@ from ..diffusion.gaussian import GaussianDiffusion
 from ..models.attention import dropout_generator
 from .state import TrainState, global_norm
 
-__all__ = ["make_loss_fn", "make_train_step", "draw_step_randoms"]
+__all__ = ["make_loss_fn", "make_train_step", "make_device_data_step", "draw_step_randoms",
+           "permute_points"]
 
 _COND_KEYS = ("class_labels", "viewpoints", "partial_pcd", "depth_maps")
 
@@ -89,23 +93,18 @@ def make_loss_fn(model: nn.Module, diffusion: GaussianDiffusion, *,
     return loss_fn
 
 
-def make_train_step(model: nn.Module, diffusion: GaussianDiffusion, *,
-                    self_conditioning_prob: float = 0.6,
-                    bootstrap_include_partial_pcd: bool = False, device="cuda"):
-    """``step(state, batch, generator, use_cd_xyz) -> metrics``: one update of ``state``
-    (in place) on ``batch`` (arrays or tensors, moved to ``device``), every random draw
-    from ``generator``. ``device`` is the card unless the caller asks for the CPU; the
-    model must lie on it."""
-    dev = resolve_device(device)
+def _make_update(model: nn.Module, diffusion: GaussianDiffusion, *,
+                 self_conditioning_prob: float, bootstrap_include_partial_pcd: bool, dev):
+    """``update(state, batch, generator, use_cd_xyz) -> metrics`` on a batch of tensors
+    on ``dev``, which the model must lie on."""
     wrong = {str(p.device) for p in model.parameters() if p.device.type != dev.type}
     if wrong:
         raise ValueError(f"the model's parameters lie on {sorted(wrong)}, not on {dev}")
     loss_fn = make_loss_fn(model, diffusion,
                            bootstrap_include_partial_pcd=bootstrap_include_partial_pcd)
 
-    def step(state: TrainState, batch: Dict[str, Any], generator: torch.Generator,
-             use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    def update(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+               use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
         t, noise, use_sc = draw_step_randoms(batch["target"], diffusion.num_timesteps,
                                              self_conditioning_prob, generator)
         model.train()
@@ -119,5 +118,59 @@ def make_train_step(model: nn.Module, diffusion: GaussianDiffusion, *,
         state.apply_gradients(grad_norm)
         metrics["grad_norm"] = grad_norm
         return metrics
+
+    return update
+
+
+def make_train_step(model: nn.Module, diffusion: GaussianDiffusion, *,
+                    self_conditioning_prob: float = 0.6,
+                    bootstrap_include_partial_pcd: bool = False, device="cuda"):
+    """``step(state, batch, generator, use_cd_xyz) -> metrics``: one update of ``state``
+    (in place) on ``batch`` (arrays or tensors, moved to ``device``), every random draw
+    from ``generator``. ``device`` is the card unless the caller asks for the CPU; the
+    model must lie on it."""
+    dev = resolve_device(device)
+    update = _make_update(model, diffusion, self_conditioning_prob=self_conditioning_prob,
+                          bootstrap_include_partial_pcd=bootstrap_include_partial_pcd,
+                          dev=dev)
+
+    def step(state: TrainState, batch: Dict[str, Any], generator: torch.Generator,
+             use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        return update(state, batch, generator, use_cd_xyz)
+
+    return step
+
+
+def permute_points(target: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Each sample's points [B, N, C] in its own uniformly random order, drawn from
+    ``generator`` on the target's device: the argsort of B x N fp64 uniforms (a tie, which
+    would bias the order, has odds of about N^2 / 2^54 a sample)."""
+    keys = torch.rand(target.shape[:2], generator=generator, device=target.device,
+                      dtype=torch.float64)
+    order = keys.argsort(dim=1)
+    return torch.gather(target, 1, order[..., None].expand_as(target))
+
+
+def make_device_data_step(model: nn.Module, diffusion: GaussianDiffusion, *,
+                          self_conditioning_prob: float = 0.6,
+                          bootstrap_include_partial_pcd: bool = False, device="cuda"):
+    """``step(state, data, idx, generator, use_cd_xyz) -> metrics``: as
+    :func:`make_train_step`, on the batch gathered by the index row ``idx`` [B] from
+    ``data``, a dataset held on the device (``{key: [items, ...] tensor}``, the normalised
+    items stacked). Each sample's ``target`` gets a fresh permutation of its points from
+    ``generator`` before the step's other draws: the distribution of the loader path's
+    per-item permutation, from the step's own stream."""
+    dev = resolve_device(device)
+    update = _make_update(model, diffusion, self_conditioning_prob=self_conditioning_prob,
+                          bootstrap_include_partial_pcd=bootstrap_include_partial_pcd,
+                          dev=dev)
+
+    def step(state: TrainState, data: Dict[str, torch.Tensor], idx, generator: torch.Generator,
+             use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
+        idx = torch.as_tensor(idx, device=dev, dtype=torch.long)
+        batch = {k: v.index_select(0, idx) for k, v in data.items()}
+        batch["target"] = permute_points(batch["target"], generator)
+        return update(state, batch, generator, use_cd_xyz)
 
     return step

@@ -1,6 +1,7 @@
-"""The port imports no JAX, and importing it (or running it on the CPU: a sampler run, a
-forward in the fully fused configuration, a forward with the head-split attention hooks, a
-train step and the attention ladder's entry point) builds nothing.
+"""The port imports no JAX (nor the JAX package, PyYAML or h5py), and importing it (or
+running it on the CPU: a sampler run, a forward in the fully fused configuration, a forward
+with the head-split attention hooks, a train step and the attention ladder's entry point)
+builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -31,6 +32,12 @@ import pcdiff_torch.core.device, pcdiff_torch.data, pcdiff_torch.data.synthetic
 import pcdiff_torch.geometry, pcdiff_torch.geometry.ops
 import pcdiff_torch.train, pcdiff_torch.train.ema, pcdiff_torch.train.state
 import pcdiff_torch.train.step
+import pcdiff_torch.core.config, pcdiff_torch.core.checkpoint, pcdiff_torch.core.logging
+import pcdiff_torch.data.modelnet, pcdiff_torch.data.loader
+import pcdiff_torch.geometry.fps, pcdiff_torch.geometry.ply, pcdiff_torch.geometry.point_cloud
+import pcdiff_torch.utils, pcdiff_torch.utils.io, pcdiff_torch.evals, pcdiff_torch.evals.metrics
+import pcdiff_torch.cli, pcdiff_torch.cli.train, pcdiff_torch.cli.sample
+import pcdiff_torch.cli.evaluate, pcdiff_torch.scripts.quality
 from pcdiff_torch.ops import _native, flash_attention as fa, layer_norm as ln, ln_dense as ld
 from pcdiff_torch.ops import attn_ladder as al, ln_mlp as lm
 
@@ -85,7 +92,8 @@ batch = {"target": np.random.default_rng(0).uniform(-0.5, 0.5, (2, 16, 3)).astyp
          "class_labels": np.array([1, 2])}
 assert torch.isfinite(step(state, batch, g, True)["loss"])
 
-bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "pcdiff"))
+bad = sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "pcdiff", "yaml", "h5py"))
 assert not bad, bad
 assert _native._libs == {} and _native.build_seconds == {}, "a kernel was built"
 assert fa.launches == 0 and ld.launches == 0

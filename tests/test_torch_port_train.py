@@ -209,6 +209,25 @@ def test_adamw_steps_and_ema_match_optax(grad_clip):
                                        err_msg=f"{name} {'/'.join(path)}")
 
 
+def test_ema_update_equals_the_per_tensor_formula():
+    """The multi-tensor EMA update is decay * ema + (1 - decay) * p of each tensor, with the
+    same roundings as that formula taken one tensor at a time, bit for bit."""
+    rng = np.random.default_rng(9)
+    model = tattn.DecoderLayer(32, 4)
+    for p in model.parameters():
+        p.data = torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32))
+    ema = init_ema(model)
+    ref = {n: t.clone() for n, t in ema.items()}
+    for decay in (0.9, 0.999, 0.9999):
+        for p in model.parameters():
+            p.data += torch.from_numpy(rng.standard_normal(p.shape).astype(np.float32))
+        ema_update(ema, model, decay)
+        for n, p in model.named_parameters():
+            ref[n] = ref[n] * decay + p * (1.0 - decay)
+    assert all(torch.equal(ema[n], ref[n]) for n in ref)
+    assert all(ema[n].data_ptr() != p.data_ptr() for n, p in model.named_parameters())
+
+
 def test_dropout_rate_scaling_and_generator():
     x = torch.rand(200_000) + 0.5
     with tattn.dropout_generator(torch.Generator().manual_seed(0)):
