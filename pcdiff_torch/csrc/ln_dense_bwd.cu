@@ -1,5 +1,6 @@
 // Fused LayerNorm -> 1 to 3 projections, backward, for Hopper (sm_90a). x [rows, C]
-// row-major; for each output i: W_i [F_i, C] (the nn.Linear layout, fp32), an optional fp32
+// row-major; for each output i: W_i [F_i, C] (the nn.Linear layout; fp32 on the fp32 path, its
+// bf16 copy on the bf16 path), an optional fp32
 // bias [F_i], the activation act_i, and the gradient g_i [rows, F_i] of out_i.
 //
 // Replaces the TPU kernel pcdiff/ops/ln_dense.py::_ln_denses_bwd_kernel (launched by
@@ -17,16 +18,19 @@
 //
 // What bounds it on the H100: the products, 2 (2 + [act]) rows C F_i FLOPs per output
 // (the z recompute where there is an activation, dy and dW), at the fp32 FMA rate in the
-// fp32 model (the train step's: 43.9 ms of a step at 67 TFLOP/s); the bytes (x, g_i, dx, W_i)
-// are a few hundred MB at most. The three products contract over different axes with their
-// operands as stored: z over C (y rows, W rows: K3's own product), dy over F (gz rows, and
-// W's [F, C] rows, which are K-major for it), dW over the rows (gz and y, both K-major).
+// fp32 model (the train step's: 43.9 ms of a step at 67 TFLOP/s); in the bf16 model the
+// products (16.2 GFLOP at a qkv z site, ~16 us at 989 TFLOP/s) and the bytes (x, g_i, dx:
+// ~53 MB there, ~16 us at 3.35 TB/s) weigh alike, so every intermediate that leaves the chip
+// costs about as much as a product. The three products contract over different axes with
+// their operands as stored: z over C (y rows, W rows: K3's own product), dy over F (gz rows,
+// and W's [F, C] rows, which are K-major for the fp32 loop and MN-major for wgmma), dW over
+// the rows (gz and y, both K-major for the fp32 loop, both MN-major for wgmma).
 // What has no counterpart: the TPU kernel sums dW_i, db_i, dscale and dbias across a
 // sequential grid. Blocks here run in no order, so each writes partial sums that a last
 // launch adds in a fixed order, with no atomics, and the result is the same from run to run.
 //
-// fp32 path (fp32 outputs, the train step's), on ln_dense_fwd.cuh: every product on its
-// 8 x 8 FMA register tile a thread (fma_stage_fp32, 16-byte shared loads, no TF32), both
+// fp32 path (fp32 outputs, the default train step's), on ln_dense_fwd.cuh: every product on
+// its 8 x 8 FMA register tile a thread (fma_stage_fp32, 16-byte shared loads, no TF32), both
 // operands streamed 32 deep through a 3-stage cp.async ring, one barrier a stage, one
 // 256-thread block an SM (at two, the 128-register cap made the dy and dW loops spill, and
 // they ran slower; a deeper ring gained nothing). Launches:
@@ -44,13 +48,31 @@
 //       partial tile written per range; the range length is the wrapper's, from the card's SM
 //       count and this kernel's occupancy.
 //   sum the partials of dW_i, db_i, dscale and dbias, each in a fixed order, in one launch.
-// bf16 path (bf16 outputs; on no timed path): (a) one block per 64 rows recomputes the LN
-// and z with WMMA, forms gz (kept in bf16 in the scratch where there is an activation) and
-// the block's partial db, dy in WMMA fragments, then dx and the partial dscale and dbias;
-// (b) one block per (64 x 64 tile of dW_i, range of rows), WMMA; (c) the same sum launch.
+// bf16 path (bf16 outputs, the bf16 model's: configs/modelnet_fast.yaml), every product on
+// wgmma from 128-byte-swizzled shared memory, W the bf16 copy the forward's K3 already made
+// (ld._product_weight), operands streamed 64 deep by cp.async, dy never in device memory:
+//   gz  (outputs with an activation only) K3's bf16 block (block_bf16: z on wgmma m64n128k16
+//       in K3's order) with K4's epilogue: g act'(z + b) in registers on DivFast (with the
+//       DivRn retake), stored rounded to bf16, and the row tile's partial db summed from the
+//       unrounded products (the 16 rows of a warp by shuffles, the 8 warps through the
+//       tile's free ring slot).
+//   dy  one block per 128 rows, two warpgroups each holding a 64 x 256 fp32 share of dy in
+//       registers (128 a thread): x's rows copied to shared memory and normalised there in
+//       ln_in_place's order (the statistics kept, y written in bf16 for dW), then gz (or g)
+//       128 x 64 K-major and W 64 x 256 MN-major a stage (wgmma m64n256k16 with B
+//       transposed) over the outputs' F in order through a ring of 48 KB stages, summing g's
+//       columns into the row tile's partial db (an output with a bias and no activation)
+//       while each stage's products run; then the LayerNorm's backward from the registers:
+//       dx, and the partial dscale and dbias. bf16 x's rows load beside a 3-stage ring, ahead
+//       of the products; fp32 x's, twice the size, into the 4-stage ring after them. One
+//       block an SM (208 registers a thread), so the z sites' 161 row tiles take two waves.
+//   dW  one block per (128 rows of a dW_i by every column, range of rows): gz 64 x 128 and y
+//       64 x 256 a stage, both MN-major (wgmma m64n256k16 with A and B transposed), the
+//       partial tile written per range; the ranges are the wrapper's, as on the fp32 path.
+//   sum the fp32 path's launch.
 
 #include <cstdint>
-#include <mma.h>
+#include <type_traits>
 
 #include "ln_dense_fwd.cuh"
 #include "ptx.cuh"
@@ -67,12 +89,6 @@ using pcdiff_ln::MAX_OUT;
 using pcdiff_ln::THREADS;
 using pcdiff_ln::WARPS;
 using namespace pcdiff_ptx;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
 
 // ---- the sum launch: out = the sum over k of part[k], in a fixed order, for up to 8 arrays ----
 // A chain of fewer than LONG_CHAIN partials (the weight gradients' row ranges) is summed in
@@ -643,355 +659,617 @@ int launch_fp32(const Fp32Args& a, const GzArgs& ga, float* dscale, float* dbias
   return sum_launch(sa, s);
 }
 
-// ============================== bf16 path (WMMA) ==============================
+// ============================== bf16 path ==============================
 
-namespace wmma_path {
+namespace bf16_path {
 
-using namespace nvcuda;
+constexpr int BK = 64;     // a stage: F (dy) or rows (dW), one 128-byte swizzled row deep
+constexpr int NC = MAX_C;  // the products' column extent (C), zero-filled past C
+constexpr int STAGES = 4;  // one multiplied while the next three load
+constexpr int A_ELEMS = BM * BK;  // dy: gz [128 rows][64 f], K-major; dW: gz [2][64 rows][64 f]
+constexpr int B_ELEMS = BK * NC;  // W [4][64 f][64 c] or y [4][64 rows][64 c], MN-major
+constexpr int SLOT = A_ELEMS + B_ELEMS;  // bf16 elements: 48 KB
+constexpr int MN_BLOCK = BK * 64;        // elements from one 64-wide MN block to the next
+constexpr size_t SMEM = (size_t)STAGES * SLOT * sizeof(bf16) + pcdiff_ln::SMEM_ALIGN;
 
-constexpr int BM = 64;        // rows per block of pass (a), per step of pass (b)
-constexpr int BN = 64;        // columns of a W / dW tile
-constexpr int LD_E = BN + 4;  // fp32 [BM][BN] staging pitch
-constexpr int LD_G = BN + 8;  // bf16 [BM][BN] pitch
-
-struct BwdArgs {
-  const void* x;
+struct Args {
+  const void* x;            // [rows, C], fp32 or bf16
   const float* ln_scale;
   const float* ln_bias;
-  const float* w[MAX_OUT];
-  const float* b[MAX_OUT];
-  const bf16* g[MAX_OUT];
-  bf16* gz[MAX_OUT];       // [rows, F_i]; null without an activation
-  float* db_part[MAX_OUT]; // [blocks, F_i]; null without a bias
+  const bf16* w[MAX_OUT];   // [F_i, C], ld._product_weight's bf16 copy
+  const bf16* gz[MAX_OUT];  // [rows, F_i]: bf16(g_i act_i'(z_i)), or g_i itself without an activation
+  float* db_part[MAX_OUT];  // [row tiles][F_i] for the dy launch's outputs: a bias, no activation
+  float* dw_part[MAX_OUT];  // [ranges][F_i][C]
   int f[MAX_OUT];
-  int act[MAX_OUT];
   int n_out;
   int rows;
   int c;
   float eps;
-  void* dx;
-  float2* stats;           // (mean, rstd) per row
-  float* ln_part;          // [2, blocks, C]: partial dscale, then partial dbias
+  bf16* y;                  // [rows, C]: y, written by the dy launch for the dW launch
+  void* dx;                 // [rows, C] in x's dtype
+  float* ln_part;           // [2][row tiles][C]: partial dscale, then partial dbias
+  int per;                  // rows a dW range, a multiple of BK
 };
 
-__host__ __device__ constexpr int row_pitch(int c) { return c + 8; }
-
-size_t rows_smem_bytes(int c) {
-  const size_t panels = 2 * (size_t)BM * row_pitch(c) * sizeof(bf16);  // y, W tile
-  const size_t stage = (size_t)BM * LD_E * sizeof(float);
-  const size_t gz = (size_t)BM * LD_G * sizeof(bf16);
-  return panels + stage + gz + 2 * BM * sizeof(float);
+__device__ __forceinline__ bf16* ring_base(unsigned char* smem) {
+  constexpr int AL = pcdiff_ln::SMEM_ALIGN;
+  return reinterpret_cast<bf16*>(smem + ((AL - (smem_u32(smem) & (AL - 1))) & (AL - 1)));
 }
 
-__device__ __forceinline__ float act_grad(float z, int act) {
-  switch (act) {
-    case ACT_GELU: return pcdiff_ln::act_grad<ACT_GELU>(z);
-    case ACT_GELU_TANH: return pcdiff_ln::act_grad<ACT_GELU_TANH>(z);
-    case ACT_QUICK_GELU: return pcdiff_ln::act_grad<ACT_QUICK_GELU>(z);
-    default: return 1.f;
+// Element (k, n) of a [k][64] MN-major block: the 16-byte chunk n / 8 at (n / 8) ^ (k % 8).
+__device__ __forceinline__ int sw(int k, int n) { return k * 64 + ((((n >> 3) ^ (k & 7))) << 3); }
+
+// The C columns of `src`'s row (a [*, C] bf16 matrix) into a stage's four MN blocks at k row
+// `k`: 32 16-byte copies a row, zero-filled past C or where !ok.
+__device__ __forceinline__ void load_wide_row(bf16* dst, const bf16* src, int c, bool ok, int k,
+                                              int nc) {
+  const bool in = ok && 8 * nc < c;
+  cp_async_16(dst + (nc >> 3) * MN_BLOCK + sw(k, 8 * (nc & 7)), src + (in ? 8 * nc : 0),
+              in ? 16 : 0);
+}
+
+// ---- gz (outputs with an activation): K3's bf16 block, g act'(z + b) as its epilogue ----
+
+struct GzArgs {
+  pcdiff_ln::Args ln;         // the outputs with an activation; out[i] is the bf16 gz scratch
+  const bf16* g[MAX_OUT];     // their gradients, [rows, F_i]
+  float* db_part[MAX_OUT];    // [row tiles][F_i] where the output has a bias, else null
+};
+
+// gz for one n8 block of a warpgroup's accumulator: rows (h) and columns (e) of the thread,
+// g act'(z) in fp32 (q) from z = acc + b.
+template <int ACT, typename Div>
+__device__ __forceinline__ void gz_pairs(const float (&z)[2][2], const float (&gv)[2][2],
+                                         float (&q)[2][2], Div div) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) q[h][e] = __fmul_rn(gv[h][e], pcdiff_ln::act_grad<ACT>(z[h][e], div));
+}
+
+// The warpgroup's 64 x 128 share of a tile: gz = bf16(g act'(z + b)) stored, and, with a bias,
+// the row tile's partial db from the unrounded products: the thread's two rows, then the
+// warp's 16 (lanes xor 4, 8, 16), then the 8 warps in order through `red` (the tile's free
+// ring slot).
+template <int ACT>
+__device__ __forceinline__ void gz_epilogue(const GzArgs& ga, int o, int n0, int r0,
+                                            const float (&acc)[64], float* red) {
+  const pcdiff_ln::Args& a = ga.ln;
+  const int F = a.f[o];
+  const float* bias = a.b[o];
+  const bf16* g = ga.g[o];
+  bf16* out = static_cast<bf16*>(a.out[o]);
+  float* db = ga.db_part[o];
+  const bool hb = bias != nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane & 3;
+  const int row0 = r0 + 16 * warp + (lane >> 2);  // and row0 + 8
+  if (db != nullptr) __syncthreads();  // both warpgroups' products are done: `red` is free
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (n0 + 8 * j >= F) break;  // F % 64 == 0: the tile's last 64 columns may lie past F
+    const int col = n0 + 8 * j + 2 * tig;
+    const float2 b = hb ? *reinterpret_cast<const float2*>(bias + col) : make_float2(0.f, 0.f);
+    float z[2][2], gv[2][2], q[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const __nv_bfloat162 v = row < a.rows
+          ? *reinterpret_cast<const __nv_bfloat162*>(g + (size_t)row * F + col)
+          : __floats2bfloat162_rn(0.f, 0.f);
+      gv[h][0] = __low2float(v);
+      gv[h][1] = __high2float(v);
+      z[h][0] = hb ? __fadd_rn(acc[4 * j + 2 * h], b.x) : acc[4 * j + 2 * h];
+      z[h][1] = hb ? __fadd_rn(acc[4 * j + 2 * h + 1], b.y) : acc[4 * j + 2 * h + 1];
+    }
+    bool ok = true;
+    gz_pairs<ACT>(z, gv, q, pcdiff_ln::DivFast{ok});
+    if (!ok) gz_pairs<ACT>(z, gv, q, pcdiff_ln::DivRn());
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row < a.rows)
+        *reinterpret_cast<unsigned*>(out + (size_t)row * F + col) = pack_bf16(q[h][0], q[h][1]);
+    }
+    if (db != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float sum = __fadd_rn(q[0][e], q[1][e]);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+        if (lane < 4) red[warp * 128 + 8 * j + 2 * tig + e] = sum;
+      }
+    }
+  }
+  if (db != nullptr) {
+    __syncthreads();
+    const int t = threadIdx.x;
+    if (t < 128 && n0 + t < F) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) sum = __fadd_rn(sum, red[w * 128 + t]);
+      db[(size_t)(r0 / BM) * F + n0 + t] = sum;
+    }
   }
 }
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Pass (a): one block per BM rows.
 template <typename TX>
-__global__ void __launch_bounds__(THREADS) ln_denses_bwd_wmma_rows_kernel(const BwdArgs a) {
+// Two blocks an SM, as K3's bf16 block (one, with more registers, or with g's loads all issued
+// before the epilogue, ran slower on an H100).
+__global__ void __launch_bounds__(THREADS, 2) ln_denses_bwd_gz_bf16_kernel(const __grid_constant__ GzArgs ga) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int C = a.c;
-  const int ldy = row_pitch(C);
-  bf16* sy = reinterpret_cast<bf16*>(smem);             // y
-  bf16* sw = sy + BM * ldy;                              // one BN-row tile of W_i
-  float* se = reinterpret_cast<float*>(sw + BN * ldy);   // z, then gz in fp32
-  bf16* sgz = reinterpret_cast<bf16*>(se + BM * LD_E);   // gz in bf16
-  float* smean = reinterpret_cast<float*>(sgz + BM * LD_G);
-  float* srstd = smean + BM;
-  float* sdy = reinterpret_cast<float*>(smem);           // dy, over y and W once they are done
-  const int ldd = C + 4;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int r0 = blockIdx.x * BM;
-  const TX* x = static_cast<const TX*>(a.x);
+  pcdiff_ln::block_bf16<TX>(ga.ln, smem, [&](int o, int n0, int r0, const float (&acc)[64],
+                                             bf16* slot) {
+    float* red = reinterpret_cast<float*>(slot);
+    switch (ga.ln.act[o]) {
+      case ACT_GELU: gz_epilogue<ACT_GELU>(ga, o, n0, r0, acc, red); break;
+      case ACT_GELU_TANH: gz_epilogue<ACT_GELU_TANH>(ga, o, n0, r0, acc, red); break;
+      case ACT_QUICK_GELU: gz_epilogue<ACT_QUICK_GELU>(ga, o, n0, r0, acc, red); break;
+      default: gz_epilogue<ACT_NONE>(ga, o, n0, r0, acc, red);
+    }
+  });
+}
 
-  // LayerNorm statistics and y, as the forward kernel computes them.
-  for (int r = warp; r < BM; r += WARPS) {
-    const int row = r0 + r;
-    bf16* yr = sy + r * ldy;
-    if (row >= a.rows) {
-      for (int c = lane; c < C; c += 32) yr[c] = __float2bfloat16(0.f);
-      if (lane == 0) smean[r] = srstd[r] = 0.f;
-      continue;
-    }
-    const TX* xr = x + (size_t)row * C;
+// ---- dy = sum_i gz_i W_i with the LayerNorm's backward: one block per 128 rows ----
+
+// Stage s of the sequence over the outputs' F, 64 deep: output o, its columns f0 .. f0 + 63.
+__device__ __forceinline__ int f_stage(const Args& a, int s, int& f0) {
+  int o = 0;
+  f0 = s * BK;
+  while (f0 >= a.f[o]) {
+    f0 -= a.f[o];
+    ++o;
+  }
+  return o;
+}
+
+// Stage s into `slot`: gz's rows r0 .. r0 + 127 at columns f0 .. f0 + 63 (K-major, rows past
+// `rows` zero-filled) and W's rows f0 .. f0 + 63 at every column (MN-major): 3072 copies, 12
+// a thread.
+__device__ __forceinline__ void dy_load(const Args& a, int r0, int s, bf16* slot) {
+  int f0;
+  const int o = f_stage(a, s, f0);
+  const int F = a.f[o], C = a.c;
+  const bf16* gz = a.gz[o];
+  const bf16* w = a.w[o];
+#pragma unroll
+  for (int j = 0; j < BM * 8 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int r = i / 8, ch = i % 8;
+    const bool ok = r0 + r < a.rows;
+    cp_async_16(slot + sw(r, 8 * ch), gz + (ok ? (size_t)(r0 + r) * F + f0 + 8 * ch : 0),
+                ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < BK * 32 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int k = i / 32;
+    load_wide_row(slot + A_ELEMS, w + (size_t)(f0 + k) * C, C, true, k, i % 32);
+  }
+}
+
+// The row tile's partial db over a g stage (an output with a bias and no activation): column
+// t / 4 summed by the 4 lanes t % 4, each over the rows t % 4 + 4 j in order, then across
+// the 4 lanes by a butterfly.
+__device__ __forceinline__ void db_stage(const Args& a, int rt, int s, const bf16* sa) {
+  int f0;
+  const int o = f_stage(a, s, f0);
+  float* part = a.db_part[o];
+  if (part == nullptr) return;
+  const int col = threadIdx.x / 4, l = threadIdx.x % 4;
+  float sum = 0.f;
+#pragma unroll 8
+  for (int j = 0; j < BM / 4; ++j) {
+    const int r = l + 4 * j;
+    sum = __fadd_rn(sum, __bfloat162float(sa[sw(r, col) + (col & 7)]));
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, off));
+  if (l == 0) part[(size_t)rt * a.f[o] + f0 + col] = sum;
+}
+
+// x's rows r0 .. r0 + 127 copied into `sx` (rows of C + 8 elements, so the LN backward's
+// fragment-ordered reads fall in distinct banks) by cp.async, rows past `rows` zero-filled;
+// one commit group, every copy in flight at once.
+template <typename TX>
+__device__ __forceinline__ void stage_rows(const Args& a, int r0, TX* sx) {
+  constexpr int PER = 16 / (int)sizeof(TX);
+  const int C = a.c, chunks = C / PER, ld = C + 8;
+  const TX* x = static_cast<const TX*>(a.x);
+  for (int i = threadIdx.x; i < BM * chunks; i += THREADS) {
+    const int r = i / chunks, c = (i % chunks) * PER;
+    const bool ok = r0 + r < a.rows;
+    cp_async_16(sx + r * ld + c, x + (ok ? (size_t)(r0 + r) * C + c : 0), ok ? 16 : 0);
+  }
+  cp_async_commit();
+}
+
+// The rows' statistics and y, as ln_in_place computes them (two rows a warp, lane l of a half
+// the 8-element chunks l and l + 16), from the rows in `sx`: y rounded to bf16 and stored for
+// the dW launch, (mean, rstd) kept in `stats`; rows past `rows` get (0, 0).
+template <typename TX>
+__device__ __forceinline__ void ln_rows(const Args& a, int r0, const TX* sx, float2* stats) {
+  constexpr int ROWS = BM / WARPS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = lane >> 4, hl = lane & 15;
+  const int C = a.c, ld = C + 8;
+  const bool pow2 = (C & (C - 1)) == 0;
+  const float inv_c = 1.f / (float)C;
+  bool live[2];
+  float sc[2][8], bi[2][8];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = 8 * (hl + 16 * j);
+    live[j] = col < C;
+    load8(a.ln_scale + col, live[j], sc[j]);
+    load8(a.ln_bias + col, live[j], bi[j]);
+  }
+#pragma unroll 2
+  for (int i = 0; i < ROWS; i += 2) {
+    const int rl = warp * ROWS + i + half, row = r0 + rl;
+    const bool in = row < a.rows;
+    float v[2][8];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) load8(sx + rl * ld + 8 * (hl + 16 * j), live[j], v[j]);
     float s = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = to_f32(xr[c]);
-      s += v;
-      s2 += v * v;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s = __fadd_rn(s, v[j][e]);
+        s2 = __fadd_rn(s2, __fmul_rn(v[j][e], v[j][e]));
+      }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {  // within the half-warp
       s += __shfl_xor_sync(0xffffffffu, s, off);
       s2 += __shfl_xor_sync(0xffffffffu, s2, off);
     }
-    const float mean = __fdiv_rn(s, (float)C);
-    const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mean, mean)), 0.f);
+    const float mean = pow2 ? __fmul_rn(s, inv_c) : __fdiv_rn(s, (float)C);
+    const float ex2 = pow2 ? __fmul_rn(s2, inv_c) : __fdiv_rn(s2, (float)C);
+    const float var = fmaxf(__fsub_rn(ex2, __fmul_rn(mean, mean)), 0.f);
     const float rstd = rsqrtf(__fadd_rn(var, a.eps));
-    if (lane == 0) {
-      smean[r] = mean;
-      srstd[r] = rstd;
-      a.stats[row] = make_float2(mean, rstd);
-    }
-    for (int c = lane; c < C; c += 32) {
-      const float y = __fmul_rn(__fsub_rn(to_f32(xr[c]), mean), rstd);
-      yr[c] = __float2bfloat16(__fadd_rn(__fmul_rn(y, a.ln_scale[c]), a.ln_bias[c]));
-    }
-  }
-  __syncthreads();
-
-  // dy accumulators: warp w owns rows 16 (w / 2) .. + 16 and the C / 2 columns of half w % 2,
-  // as C / 32 fragments.
-  FragC dfr[MAX_C / 32];
+    if (hl == 0) stats[rl] = in ? make_float2(mean, rstd) : make_float2(0.f, 0.f);
+    if (!in) continue;
 #pragma unroll
-  for (int j = 0; j < MAX_C / 32; ++j) wmma::fill_fragment(dfr[j], 0.f);
-
-  for (int o = 0; o < a.n_out; ++o) {
-    const int F = a.f[o];
-    const float* __restrict__ w = a.w[o];
-    const float* __restrict__ bias = a.b[o];
-    const int act = a.act[o];
-    const bf16* __restrict__ g = a.g[o];
-    bf16* __restrict__ gz = a.gz[o];
-    for (int f0 = 0; f0 < F; f0 += BN) {
-      for (int i = tid; i < BN * C; i += THREADS) {
-        const int n = i / C, c = i - n * C;
-        sw[n * ldy + c] = __float2bfloat16(w[(size_t)(f0 + n) * C + c]);
-      }
-      __syncthreads();
-      if (act != ACT_NONE) {  // z = y W^T (+ b), the forward's product, into se
-        const int wm = warp / 2;
-        const int wn = (warp % 2) * 2;
-        FragC acc[2];
-        wmma::fill_fragment(acc[0], 0.f);
-        wmma::fill_fragment(acc[1], 0.f);
-        for (int k0 = 0; k0 < C; k0 += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, sy + wm * 16 * ldy + k0, ldy);
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, sw + (wn + j) * 16 * ldy + k0, ldy);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
-        }
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(se + wm * 16 * LD_E + (wn + j) * 16, acc[j], LD_E,
-                                  wmma::mem_row_major);
-        __syncthreads();
-      }
-      // gz = g act'(z) in fp32 (se), in bf16 (sgz, and the scratch for (b))
-      for (int i = tid; i < BM * BN; i += THREADS) {
-        const int r = i / BN, c = i - r * BN;
-        const int row = r0 + r;
-        float v = 0.f;
-        if (row < a.rows) {
-          v = __bfloat162float(g[(size_t)row * F + f0 + c]);
-          if (act != ACT_NONE) {
-            float z = se[r * LD_E + c];
-            if (bias != nullptr) z = __fadd_rn(z, bias[f0 + c]);
-            v = __fmul_rn(v, act_grad(z, act));
-            gz[(size_t)row * F + f0 + c] = __float2bfloat16(v);
-          }
-        }
-        se[r * LD_E + c] = v;
-        sgz[r * LD_G + c] = __float2bfloat16(v);
-      }
-      __syncthreads();
-      if (bias != nullptr && tid < BN) {  // this block's part of db, from the fp32 gz
-        float s = 0.f;
-        for (int r = 0; r < BM; ++r) s += se[r * LD_E + tid];
-        a.db_part[o][(size_t)blockIdx.x * F + f0 + tid] = s;
-      }
-      // dy += gz W_tile
-      const int slab = warp / 2;
-      const int cbase = (warp % 2) * (C / 2);
-      for (int kk = 0; kk < BN / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, sgz + slab * 16 * LD_G + kk * 16, LD_G);
+    for (int j = 0; j < 2; ++j) {
+      if (!live[j]) continue;
+      float y[8];
 #pragma unroll
-        for (int j = 0; j < MAX_C / 32; ++j) {
-          if (j < C / 32) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, sw + kk * 16 * ldy + cbase + j * 16, ldy);
-            wmma::mma_sync(dfr[j], fa, fb, dfr[j]);
-          }
-        }
-      }
-      __syncthreads();  // sw, se and sgz are rewritten by the next tile
+      for (int e = 0; e < 8; ++e)
+        y[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[j][e], mean), rstd), sc[j][e]), bi[j][e]);
+      store8(a.y + (size_t)row * C + 8 * (hl + 16 * j), y);
     }
   }
+}
 
-  // dy to shared memory (over y and W, which are done)
-  {
-    const int slab = warp / 2;
-    const int cbase = (warp % 2) * (C / 2);
-#pragma unroll
-    for (int j = 0; j < MAX_C / 32; ++j)
-      if (j < C / 32)
-        wmma::store_matrix_sync(sdy + slab * 16 * ldd + cbase + j * 16, dfr[j], ldd,
-                                wmma::mem_row_major);
+template <typename T>
+__device__ __forceinline__ float2 load2(const T* p, bool ok) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return ok ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p)) : make_float2(0.f, 0.f);
+  } else {
+    return ok ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
   }
-  __syncthreads();
+}
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float v0, float v1) {
+  if constexpr (std::is_same<T, bf16>::value)
+    *reinterpret_cast<unsigned*>(p) = pack_bf16(v0, v1);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
 
-  // dx, a warp per row
+// The LayerNorm's backward from dy in the warpgroups' accumulators (the thread's rows 16 warp +
+// lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1)): the rows' sums of dxhat and dxhat xhat
+// over the thread's 64 columns in order, then the quad's 4 lanes (xor 1, 2); dx; and the
+// columns' partial dscale and dbias over the thread's two rows, the warp's 16 (xor 4, 8, 16),
+// then the 8 warps in order through `red`.
+template <typename TX>
+__device__ __forceinline__ void ln_backward(const Args& a, int rt, const float (&acc)[128],
+                                            const TX* sx, const float2* stats, float* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane & 3;
+  const int C = a.c, r0 = rt * BM, ld = C + 8;
+  const bool pow2 = (C & (C - 1)) == 0;
+  const float inv_c = 1.f / (float)C;
   TX* dx = static_cast<TX*>(a.dx);
-  for (int r = warp; r < BM; r += WARPS) {
-    const int row = r0 + r;
-    if (row >= a.rows) continue;
-    const TX* xr = x + (size_t)row * C;
-    const float mean = smean[r], rstd = srstd[r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float xhat = __fmul_rn(__fsub_rn(to_f32(xr[c]), mean), rstd);
-      const float dxh = __fmul_rn(sdy[r * ldd + c], a.ln_scale[c]);
-      s1 += dxh;
-      s2 += dxh * xhat;
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    const float m1 = __fdiv_rn(s1, (float)C);
-    const float m2 = __fdiv_rn(s2, (float)C);
-    for (int c = lane; c < C; c += 32) {
-      const float xhat = __fmul_rn(__fsub_rn(to_f32(xr[c]), mean), rstd);
-      const float dxh = __fmul_rn(sdy[r * ldd + c], a.ln_scale[c]);
-      const float v = __fmul_rn(rstd, __fsub_rn(__fsub_rn(dxh, m1), __fmul_rn(xhat, m2)));
-      dx[(size_t)row * C + c] = from_f32<TX>(v);
-    }
+  int row[2], rl[2];
+  bool in[2];
+  float mean[2], rstd[2], t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rl[h] = 16 * warp + (lane >> 2) + 8 * h;
+    row[h] = r0 + rl[h];
+    in[h] = row[h] < a.rows;
+    const float2 st = stats[rl[h]];
+    mean[h] = st.x;
+    rstd[h] = st.y;
   }
-
-  // this block's part of dscale and dbias, a thread per column
-  if (tid < C) {
-    float ds = 0.f, db = 0.f;
-    for (int r = 0; r < BM; ++r) {
-      const int row = r0 + r;
-      if (row >= a.rows) break;
-      const float xhat = __fmul_rn(__fsub_rn(to_f32(x[(size_t)row * C + tid]), smean[r]),
-                                   srstd[r]);
-      const float d = sdy[r * ldd + tid];
-      ds += d * xhat;
-      db += d;
-    }
-    a.ln_part[(size_t)blockIdx.x * C + tid] = ds;
-    a.ln_part[((size_t)gridDim.x + blockIdx.x) * C + tid] = db;
-  }
-}
-
-// Pass (b): one block per (64 x 64 tile of dW_i, range of rows) -> a partial tile in
-// part[range][F][C].
-template <typename TX>
-__global__ void __launch_bounds__(THREADS)
-ln_denses_bwd_wmma_dw_kernel(const void* xv, const float2* __restrict__ stats,
-                             const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
-                             const bf16* __restrict__ gz, float* __restrict__ part, int rows,
-                             int C, int F, int rows_per_range) {
-  constexpr int PANEL = BM * LD_G * (int)sizeof(bf16);
-  constexpr int BYTES = 2 * PANEL > BN * LD_E * 4 ? 2 * PANEL : BN * LD_E * 4;
-  __shared__ __align__(128) unsigned char buf[BYTES];
-  bf16* sgz = reinterpret_cast<bf16*>(buf);          // [row][f]
-  bf16* sy = reinterpret_cast<bf16*>(buf + PANEL);   // [row][c]
-  float* se = reinterpret_cast<float*>(buf);         // the finished tile, over sgz and sy
-  const TX* x = static_cast<const TX*>(xv);
-  const int ctiles = (C + BN - 1) / BN;
-  const int f0 = (blockIdx.x / ctiles) * BN;
-  const int c0 = (blockIdx.x % ctiles) * BN;
-  const int lo = blockIdx.y * rows_per_range;
-  const int hi = min(rows, lo + rows_per_range);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-
-  FragC acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  for (int r0 = lo; r0 < hi; r0 += BM) {
-    for (int i = tid; i < BM * BN; i += THREADS) {
-      const int r = i / BN, j = i - r * BN;
-      const int row = r0 + r;
-      const int c = c0 + j;
-      float yv = 0.f;
-      bf16 gv = __float2bfloat16(0.f);
-      if (row < hi) {
-        gv = gz[(size_t)row * F + f0 + j];
-        if (c < C) {
-          const float2 st = stats[row];
-          const float xh = __fmul_rn(__fsub_rn(to_f32(x[(size_t)row * C + c]), st.x), st.y);
-          yv = __fadd_rn(__fmul_rn(xh, ln_scale[c]), ln_bias[c]);
-        }
-      }
-      sgz[r * LD_G + j] = gv;
-      sy[r * LD_G + j] = __float2bfloat16(yv);
-    }
-    __syncthreads();
-    const int fs = warp / 2;        // 16-row slab of f
-    const int cn = (warp % 2) * 2;  // first of two 16-column fragments of c
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;  // gz^T
-      wmma::load_matrix_sync(fa, sgz + kk * 16 * LD_G + fs * 16, LD_G);
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, sy + kk * 16 * LD_G + (cn + j) * 16, LD_G);
-        wmma::mma_sync(acc[j], fa, fb, acc[j]);
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    if (8 * j >= C) break;  // C % 32 == 0: the n8 block lies wholly in or out
+    const int col = 8 * j + 2 * tig;
+    const float2 sc = *reinterpret_cast<const float2*>(a.ln_scale + col);
+    const float scv[2] = {sc.x, sc.y};
+    float ds[2], db[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 xv = load2(sx + rl[h] * ld + col, true);
+      const float xs[2] = {xv.x, xv.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float d = acc[4 * j + 2 * h + e];
+        const float xh = __fmul_rn(__fsub_rn(xs[e], mean[h]), rstd[h]);
+        const float dxh = __fmul_rn(d, scv[e]);
+        t1[h] = __fadd_rn(t1[h], dxh);
+        t2[h] = __fadd_rn(t2[h], __fmul_rn(dxh, xh));
+        const float p = __fmul_rn(d, xh);
+        ds[e] = h == 0 ? p : __fadd_rn(ds[e], p);
+        db[e] = h == 0 ? d : __fadd_rn(db[e], d);
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        ds[e] = __fadd_rn(ds[e], __shfl_xor_sync(0xffffffffu, ds[e], off));
+        db[e] = __fadd_rn(db[e], __shfl_xor_sync(0xffffffffu, db[e], off));
+      }
+      if (lane < 4) {
+        red[(2 * warp) * NC + col + e] = ds[e];
+        red[(2 * warp + 1) * NC + col + e] = db[e];
+      }
+    }
   }
-
-  {
-    const int fs = warp / 2;
-    const int cn = (warp % 2) * 2;
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(se + fs * 16 * LD_E + (cn + j) * 16, acc[j], LD_E,
-                              wmma::mem_row_major);
+  float m1[2], m2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      t1[h] = __fadd_rn(t1[h], __shfl_xor_sync(0xffffffffu, t1[h], off));
+      t2[h] = __fadd_rn(t2[h], __shfl_xor_sync(0xffffffffu, t2[h], off));
+    }
+    m1[h] = pow2 ? __fmul_rn(t1[h], inv_c) : __fdiv_rn(t1[h], (float)C);
+    m2[h] = pow2 ? __fmul_rn(t2[h], inv_c) : __fdiv_rn(t2[h], (float)C);
+  }
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    if (8 * j >= C) break;
+    const int col = 8 * j + 2 * tig;
+    const float2 sc = *reinterpret_cast<const float2*>(a.ln_scale + col);
+    const float scv[2] = {sc.x, sc.y};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!in[h]) continue;
+      const float2 xv = load2(sx + rl[h] * ld + col, true);
+      const float xs[2] = {xv.x, xv.y};
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float xh = __fmul_rn(__fsub_rn(xs[e], mean[h]), rstd[h]);
+        const float dxh = __fmul_rn(acc[4 * j + 2 * h + e], scv[e]);
+        v[e] = __fmul_rn(rstd[h], __fsub_rn(__fsub_rn(dxh, m1[h]), __fmul_rn(xh, m2[h])));
+      }
+      store2(dx + (size_t)row[h] * C + col, v[0], v[1]);
+    }
   }
   __syncthreads();
-  float* dst = part + (size_t)blockIdx.y * F * C;
-  for (int i = tid; i < BN * BN; i += THREADS) {
-    const int f = i / BN, j = i - f * BN;
-    if (c0 + j < C) dst[(size_t)(f0 + f) * C + c0 + j] = se[f * LD_E + j];
+  const int tiles = gridDim.x;
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      s0 = __fadd_rn(s0, red[(2 * w) * NC + c]);
+      s1 = __fadd_rn(s1, red[(2 * w + 1) * NC + c]);
+    }
+    a.ln_part[(size_t)rt * C + c] = s0;
+    a.ln_part[((size_t)tiles + rt) * C + c] = s1;
   }
 }
 
+// The dy launch's ring depth and shared memory by x's dtype: bf16 x's rows (66 KB at C = 256)
+// get their own region beside a 3-stage ring, so they load with the ring's first stages and y
+// is written while the products run; fp32 x's (132 KB) would not fit beside it, so they
+// load into the 4-stage ring once the products are done.
 template <typename TX>
-int launch(const BwdArgs& a, float* dscale, float* dbias, float* const* dw, float* const* db,
-           float* const* dw_part, const int* dw_split, cudaStream_t s) {
-  static size_t configured = 0;
+__host__ __device__ constexpr int dy_stages() { return sizeof(TX) == 2 ? 3 : STAGES; }
+template <typename TX>
+constexpr size_t dy_smem() {
+  return (size_t)dy_stages<TX>() * SLOT * sizeof(bf16) +
+         (sizeof(TX) == 2 ? (size_t)BM * (MAX_C + 8) * sizeof(TX) : 0) + pcdiff_ln::SMEM_ALIGN;
+}
+
+// One block per 128 rows, two consumer warpgroups of 64 rows, each holding its 64 x 256 fp32
+// share of dy in registers: x's rows (one cp.async group), their statistics and y; gz W stage
+// by stage on wgmma m64n256k16 (gz K-major, W's rows MN-major: one stage is 64 of the outputs'
+// F, in output order); then the LayerNorm's backward. bf16 x is copied and normalised ahead
+// of the products, fp32 x after them (dy_stages).
+template <typename TX>
+__global__ void __launch_bounds__(THREADS, 1) ln_denses_bwd_dy_bf16_kernel(const __grid_constant__ Args a) {
+  constexpr int ST = dy_stages<TX>();
+  constexpr bool AHEAD = sizeof(TX) == 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float2 stats[BM];
+  bf16* ring = ring_base(smem);
+  // x's 128 rows: beside the ring (bf16), or in it once the products are done (fp32)
+  TX* sx = reinterpret_cast<TX*>(AHEAD ? ring + ST * SLOT : ring);
+  const int rt = blockIdx.x, r0 = rt * BM, wg = threadIdx.x / 128;
+  int stages = 0;
+  for (int o = 0; o < a.n_out; ++o) stages += a.f[o] / BK;
+  if constexpr (AHEAD) stage_rows<TX>(a, r0, sx);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < stages) dy_load(a, r0, s, ring + s * SLOT);
+    cp_async_commit();
+  }
+  if constexpr (AHEAD) {
+    cp_async_wait<ST - 1>();  // x's group, older than the ring's
+    __syncthreads();
+    ln_rows<TX>(a, r0, sx, stats);
+  }
+  float acc[128];
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<ST - 2>();
+    fence_proxy_async();
+    __syncthreads();  // stage s landed for everyone; everyone's products of stage s - 1 are done
+    const int sn = s + ST - 1;
+    if (sn < stages) dy_load(a, r0, sn, ring + (sn % ST) * SLOT);
+    cp_async_commit();
+    const bf16* slot = ring + (s % ST) * SLOT;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_m64n256k16_ss<0, 1>(acc, sw128_desc(slot + wg * 64 * 64 + 16 * ks),
+                                sw128_desc_mn(slot + A_ELEMS + ks * 16 * 64, MN_BLOCK * 2),
+                                s > 0 || ks > 0);
+    wgmma_commit();
+    fence_regs(acc);  // the products run on while db_stage reads the same slot
+    db_stage(a, rt, s, slot);
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's products are done: the ring is free
+  if constexpr (!AHEAD) {
+    stage_rows<TX>(a, r0, sx);
+    cp_async_wait<0>();
+    __syncthreads();
+    ln_rows<TX>(a, r0, sx, stats);
+    __syncthreads();
+  }
+  float* red = reinterpret_cast<float*>(AHEAD ? ring : reinterpret_cast<bf16*>(sx + BM * (a.c + 8)));
+  ln_backward<TX>(a, rt, acc, sx, stats, red);
+}
+
+// ---- dW_i = gz_i^T y: one block per (128 x C tile of a dW_i, range of rows) ----
+
+__device__ __forceinline__ int dw_tiles(const Args& a) {
+  int t = 0;
+  for (int o = 0; o < a.n_out; ++o) t += (a.f[o] + BM - 1) / BM;
+  return t;
+}
+
+__device__ __forceinline__ int dw_tile(const Args& a, int t, int& f0) {
+  int o = 0, ft = (a.f[0] + BM - 1) / BM;
+  while (t >= ft) {
+    t -= ft;
+    ++o;
+    ft = (a.f[o] + BM - 1) / BM;
+  }
+  f0 = t * BM;
+  return o;
+}
+
+// Rows row0 .. row0 + 63 of gz_i (columns f0 .. f0 + 127, two MN blocks) and of y (every
+// column, four MN blocks) into `slot`, zero-filled at or past `hi`, past F and past C.
+__device__ __forceinline__ void dw_load(const Args& a, int o, int f0, int row0, int hi,
+                                        bf16* slot) {
+  const int F = a.f[o], C = a.c;
+  const bf16* gz = a.gz[o];
+#pragma unroll
+  for (int j = 0; j < BK * 16 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int k = i / 16, nc = i % 16, row = row0 + k;
+    const bool ok = row < hi && f0 + 8 * nc < F;
+    cp_async_16(slot + (nc >> 3) * MN_BLOCK + sw(k, 8 * (nc & 7)),
+                gz + (ok ? (size_t)row * F + f0 + 8 * nc : 0), ok ? 16 : 0);
+  }
+#pragma unroll
+  for (int j = 0; j < BK * 32 / THREADS; ++j) {
+    const int i = threadIdx.x + j * THREADS;
+    const int k = i / 32, row = row0 + k;
+    const bool ok = row < hi;
+    load_wide_row(slot + A_ELEMS, a.y + (ok ? (size_t)row * C : 0), C, ok, k, i % 32);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) ln_denses_bwd_dw_bf16_kernel(const __grid_constant__ Args a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* ring = ring_base(smem);
+  const int tiles = dw_tiles(a);
+  const int range = blockIdx.x / tiles, wg = threadIdx.x / 128;
+  int f0;
+  const int o = dw_tile(a, blockIdx.x % tiles, f0);
+  const int lo = range * a.per, hi = min(a.rows, lo + a.per);
+  const int stages = (hi - lo + BK - 1) / BK;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < stages) dw_load(a, o, f0, lo + s * BK, hi, ring + s * SLOT);
+    cp_async_commit();
+  }
+  float acc[128];
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    cp_async_wait<STAGES - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    const int sn = s + STAGES - 1;
+    if (sn < stages) dw_load(a, o, f0, lo + sn * BK, hi, ring + (sn % STAGES) * SLOT);
+    cp_async_commit();
+    const bf16* slot = ring + (s % STAGES) * SLOT;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < BK / 16; ++ks)
+      wgmma_m64n256k16_ss<1, 1>(acc, sw128_desc_mn(slot + wg * MN_BLOCK + ks * 16 * 64,
+                                                   MN_BLOCK * 2),
+                                sw128_desc_mn(slot + A_ELEMS + ks * 16 * 64, MN_BLOCK * 2),
+                                s > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+  // the thread's rows of the tile are f0 + 64 wg + 16 (warp % 4) + lane / 4 (+ 8)
+  const int F = a.f[o], C = a.c;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tig = lane & 3;
+  float* part = a.dw_part[o] + (size_t)range * F * C;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = f0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (f >= F) continue;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (8 * j < C)
+        *reinterpret_cast<float2*>(part + (size_t)f * C + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+// db_src[i]: output i's partial db, [row tiles][F_i] (the gz launch's or the dy launch's).
+template <typename TX>
+int launch(const Args& a, const GzArgs& ga, float* dscale, float* dbias, float* const* dw,
+           float* const* db, float* const* db_src, cudaStream_t s) {
   int err;
-  const size_t smem = rows_smem_bytes(a.c);
-  if ((err = configure(ln_denses_bwd_wmma_rows_kernel<TX>, smem, configured))) return err;
-  const int blocks = (a.rows + BM - 1) / BM;
-  ln_denses_bwd_wmma_rows_kernel<TX><<<blocks, THREADS, smem, s>>>(a);
+  const int row_tiles = (a.rows + BM - 1) / BM;
+  if (ga.ln.n_out > 0) {
+    static size_t configured = 0;
+    const size_t smem = pcdiff_ln::smem_bytes<bf16>(a.c);
+    if ((err = configure(ln_denses_bwd_gz_bf16_kernel<TX>, smem, configured))) return err;
+    ln_denses_bwd_gz_bf16_kernel<TX><<<(unsigned)row_tiles * ga.ln.groups, THREADS, smem, s>>>(ga);
+    if ((err = (int)cudaGetLastError())) return err;
+  }
+  static size_t dy_configured = 0, dw_configured = 0;
+  if ((err = configure(ln_denses_bwd_dy_bf16_kernel<TX>, dy_smem<TX>(), dy_configured)))
+    return err;
+  ln_denses_bwd_dy_bf16_kernel<TX><<<(unsigned)row_tiles, THREADS, dy_smem<TX>(), s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  const int ctiles = (a.c + BN - 1) / BN;
+  if ((err = configure(ln_denses_bwd_dw_bf16_kernel, SMEM, dw_configured))) return err;
+  int tiles = 0;
+  for (int o = 0; o < a.n_out; ++o) tiles += (a.f[o] + BM - 1) / BM;
+  const int ranges = (a.rows + a.per - 1) / a.per;
+  ln_denses_bwd_dw_bf16_kernel<<<(unsigned)(tiles * ranges), THREADS, SMEM, s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
   SumArgs sa;
   sa.nseg = 0;
-  for (int o = 0; o < a.n_out; ++o) {
-    const int F = a.f[o];
-    const int per = (blocks + dw_split[o] - 1) / dw_split[o] * BM;
-    const int ranges = (a.rows + per - 1) / per;  // <= dw_split[o]; the rest stays unused
-    const bf16* src = a.gz[o] != nullptr ? a.gz[o] : a.g[o];
-    ln_denses_bwd_wmma_dw_kernel<TX><<<dim3((F / BN) * ctiles, ranges), THREADS, 0, s>>>(
-        a.x, a.stats, a.ln_scale, a.ln_bias, src, dw_part[o], a.rows, a.c, F, per);
-    if ((err = (int)cudaGetLastError())) return err;
-    add_seg(sa, dw_part[o], dw[o], F * a.c, ranges);
-    if (db[o] != nullptr) add_seg(sa, a.db_part[o], db[o], F, blocks);
-  }
-  add_seg(sa, a.ln_part, dscale, a.c, blocks);
-  add_seg(sa, a.ln_part + (size_t)blocks * a.c, dbias, a.c, blocks);
+  add_seg(sa, a.ln_part, dscale, a.c, row_tiles);
+  add_seg(sa, a.ln_part + (size_t)row_tiles * a.c, dbias, a.c, row_tiles);
+  for (int o = 0; o < a.n_out; ++o)
+    if (db[o] != nullptr) add_seg(sa, db_src[o], db[o], a.f[o], row_tiles);
+  for (int o = 0; o < a.n_out; ++o) add_seg(sa, a.dw_part[o], dw[o], a.f[o] * a.c, ranges);
   return sum_launch(sa, s);
 }
 
-}  // namespace wmma_path
+}  // namespace bf16_path
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
 
@@ -1095,12 +1373,23 @@ extern "C" int pcdiff_ln_denses_bwd_fp32(
                 : launch_fp32<float>(a, ga, ds, dbb, dwp, dbp, s);
 }
 
-// How many blocks of the fp32 path's weight-gradient kernel an SM of the current device holds
-// at once (the occupancy API), for the wrapper's choice of row ranges; its tile side (128) and
-// stage depth (32 rows). Returns the cudaError_t (0 on success).
-extern "C" int pcdiff_ln_denses_bwd_tiling(int* tile, int* depth, int* blocks_per_sm) {
-  static size_t configured = 0;
+// How many blocks of a path's weight-gradient kernel (bf16 != 0: the bf16 path's) an SM of
+// the current device holds at once (the occupancy API), for the wrapper's choice of row
+// ranges; its tile side (128: the fp32 path's square tiles; the bf16 path's 128 rows of dW_i
+// by every column) and stage depth (rows: 32 fp32, 64 bf16). Returns the cudaError_t (0 on
+// success).
+extern "C" int pcdiff_ln_denses_bwd_tiling(int bf16, int* tile, int* depth, int* blocks_per_sm) {
   *tile = BM;
+  if (bf16) {
+    static size_t configured = 0;
+    *depth = bf16_path::BK;
+    if (const int e = configure(bf16_path::ln_denses_bwd_dw_bf16_kernel, bf16_path::SMEM,
+                                configured))
+      return e;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, bf16_path::ln_denses_bwd_dw_bf16_kernel, THREADS, bf16_path::SMEM);
+  }
+  static size_t configured = 0;
   *depth = BK;
   if (const int e = configure(ln_denses_bwd_dw_kernel, DW_SMEM, configured)) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm,
@@ -1108,53 +1397,86 @@ extern "C" int pcdiff_ln_denses_bwd_tiling(int* tile, int* depth, int* blocks_pe
                                                             DW_SMEM);
 }
 
-// The bf16 path (bf16 g and outputs; x fp32 or bf16). Arguments as the fp32 path's, with the
-// statistics scratch stats (2 rows fp32) in place of dy, gz[i] bf16 [rows, f[i]], ln_part 2
-// blocks c and db_part[i] blocks f[i] with blocks = ceil(rows / 64), dw_part[i] dw_split[i]
-// f[i] c, and dw_split[i] the row ranges of output i's weight gradient.
+// The bf16 path (bf16 g and outputs; x fp32 or bf16). Arguments as the fp32 path's, with w[i]
+// the bf16 copies of the weights, the bf16 scratch y [rows, c] in place of dy, and gz[i] bf16;
+// dw_rows % 64 == 0, and `groups` counted in the gz launch's 128-column tiles.
 extern "C" int pcdiff_ln_denses_bwd_bf16(
     const void* x, const void* ln_scale, const void* ln_bias, int n_out,
     const void* const* w, const void* const* b, const void* const* g, const int* f,
     const int* act, void* dx, void* dscale, void* dbias, void* const* dw, void* const* db,
-    void* stats, void* const* gz, void* ln_part, void* const* dw_part,
-    void* const* db_part, const int* dw_split, int rows, int c, float eps, int x_bf16,
-    void* stream) {
+    void* y, void* const* gz, void* ln_part, void* const* dw_part, void* const* db_part,
+    int rows, int c, float eps, int x_bf16, int groups, int dw_rows, void* stream) {
   if (n_out < 1 || n_out > MAX_OUT || rows <= 0 || c <= 0 || c > MAX_C || c % 32 != 0 ||
+      dw_rows <= 0 || dw_rows % bf16_path::BK != 0 ||
       !valid_outputs(n_out, f, act, w, b, g, dw, db, dw_part, db_part, gz))
     return (int)cudaErrorInvalidValue;
-  wmma_path::BwdArgs a;
+  const void* const ptrs[] = {x, ln_scale, ln_bias, dx, dscale, dbias, y, ln_part};
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return (int)cudaErrorMisalignedAddress;
+  bf16_path::Args a;
+  bf16_path::GzArgs ga;
   float* dwp[MAX_OUT];
   float* dbp[MAX_OUT];
-  float* dwpart[MAX_OUT];
-  int split[MAX_OUT];
+  float* db_src[MAX_OUT];
   a.x = x;
   a.ln_scale = static_cast<const float*>(ln_scale);
   a.ln_bias = static_cast<const float*>(ln_bias);
+  ga.ln.x = x;
+  ga.ln.ln_scale = a.ln_scale;
+  ga.ln.ln_bias = a.ln_bias;
+  int n_act = 0, act_tiles = 0;
   for (int i = 0; i < MAX_OUT; ++i) {
     const bool on = i < n_out;
-    if (on && dw_split[i] <= 0) return (int)cudaErrorInvalidValue;
-    a.w[i] = on ? static_cast<const float*>(w[i]) : nullptr;
-    a.b[i] = on ? static_cast<const float*>(b[i]) : nullptr;
-    a.g[i] = on ? static_cast<const bf16*>(g[i]) : nullptr;
-    a.gz[i] = on && act[i] != ACT_NONE ? static_cast<bf16*>(gz[i]) : nullptr;
-    a.db_part[i] = on ? static_cast<float*>(db_part[i]) : nullptr;
+    if (on && (!aligned16(w[i]) || !aligned16(g[i]) || !aligned16(b[i]) || !aligned16(gz[i]) ||
+               !aligned16(db_part[i]) || !aligned16(dw_part[i]) || !aligned16(dw[i]) ||
+               !aligned16(db[i])))
+      return (int)cudaErrorMisalignedAddress;
+    const bool has_act = on && act[i] != ACT_NONE, has_bias = on && b[i] != nullptr;
+    a.w[i] = on ? static_cast<const bf16*>(w[i]) : nullptr;
+    a.gz[i] = on ? static_cast<const bf16*>(has_act ? gz[i] : g[i]) : nullptr;
+    // the dy launch sums g's columns where there is no activation; the gz launch sums the
+    // unrounded g act'(z) where there is one
+    a.db_part[i] = has_bias && !has_act ? static_cast<float*>(db_part[i]) : nullptr;
+    a.dw_part[i] = on ? static_cast<float*>(dw_part[i]) : nullptr;
     a.f[i] = on ? f[i] : 0;
-    a.act[i] = on ? act[i] : ACT_NONE;
     dwp[i] = on ? static_cast<float*>(dw[i]) : nullptr;
-    dbp[i] = on && b[i] != nullptr ? static_cast<float*>(db[i]) : nullptr;
-    dwpart[i] = on ? static_cast<float*>(dw_part[i]) : nullptr;
-    split[i] = on ? dw_split[i] : 1;
+    dbp[i] = has_bias ? static_cast<float*>(db[i]) : nullptr;
+    db_src[i] = has_bias ? static_cast<float*>(db_part[i]) : nullptr;
+    ga.ln.w[i] = ga.ln.b[i] = nullptr;
+    ga.ln.out[i] = nullptr;
+    ga.g[i] = nullptr;
+    ga.db_part[i] = nullptr;
+    ga.ln.f[i] = 0;
+    ga.ln.act[i] = ACT_NONE;
+    if (has_act) {  // the gz launch's outputs: those with an activation, in order
+      ga.ln.w[n_act] = w[i];
+      ga.ln.b[n_act] = static_cast<const float*>(b[i]);
+      ga.ln.out[n_act] = gz[i];
+      ga.g[n_act] = static_cast<const bf16*>(g[i]);
+      ga.db_part[n_act] = has_bias ? static_cast<float*>(db_part[i]) : nullptr;
+      ga.ln.f[n_act] = f[i];
+      ga.ln.act[n_act] = act[i];
+      act_tiles += (f[i] + pcdiff_ln::Path<bf16>::BN - 1) / pcdiff_ln::Path<bf16>::BN;
+      ++n_act;
+    }
   }
+  if (n_act > 0 && (groups < 1 || groups > act_tiles)) return (int)cudaErrorInvalidValue;
   a.n_out = n_out;
   a.rows = rows;
   a.c = c;
   a.eps = eps;
+  a.y = static_cast<bf16*>(y);
   a.dx = dx;
-  a.stats = static_cast<float2*>(stats);
   a.ln_part = static_cast<float*>(ln_part);
+  a.per = dw_rows;
+  ga.ln.n_out = n_act;
+  ga.ln.rows = rows;
+  ga.ln.c = c;
+  ga.ln.groups = groups;
+  ga.ln.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ds = static_cast<float*>(dscale);
   float* dbb = static_cast<float*>(dbias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return x_bf16 ? wmma_path::launch<bf16>(a, ds, dbb, dwp, dbp, dwpart, split, s)
-                : wmma_path::launch<float>(a, ds, dbb, dwp, dbp, dwpart, split, s);
+  return x_bf16 ? bf16_path::launch<bf16>(a, ga, ds, dbb, dwp, dbp, db_src, s)
+                : bf16_path::launch<float>(a, ga, ds, dbb, dwp, dbp, db_src, s);
 }

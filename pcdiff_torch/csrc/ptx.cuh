@@ -5,7 +5,8 @@
 // warp-specialised ring (mbarriers, named barriers, the tensor memory accelerator's 2-D
 // copy) and of a thread-block cluster (its barrier, a peer block's shared memory). Shared by
 // the attention loop (attention_fwd.cuh), the LayerNorm -> projections loop
-// (ln_dense_fwd.cuh) and the whole-MLP kernel (ln_mlp.cu).
+// (ln_dense_fwd.cuh), the whole-MLP kernel (ln_mlp.cu) and the LayerNorm -> projections
+// backward (ln_dense_bwd.cu).
 
 #pragma once
 
@@ -208,6 +209,75 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const unsig
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// The shared-memory descriptor of an MN-major bf16 operand in the 128-byte swizzle, the
+// layout wgmma reads with its transpose bit set: rows of 64 elements (128 bytes) contiguous
+// in M (or N), one row per k, whose 16-byte chunk c sits at c ^ (k % 8); groups of 8 k rows
+// 1024 bytes apart (the stride byte offset), each 64-wide block of M or N `lbo` bytes after
+// the last (the leading byte offset), the whole 1024-byte aligned. p is the operand's first
+// block at its k offset (a k16 step advances p by 16 rows, 2048 bytes).
+__device__ __forceinline__ unsigned long long sw128_desc_mn(const void* p, unsigned lbo) {
+  const unsigned long long addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4)                            // start address, bits 0-13
+         | ((unsigned long long)((lbo & 0x3FFFF) >> 4) << 16)  // leading byte offset
+         | ((1024ull >> 4) << 32)                            // stride byte offset
+         | (1ull << 62);                                     // 128-byte swizzle
+}
+
+// d (+)= A B for a 64 x 256 x 16 step of one warpgroup, both operands in shared memory,
+// fp32 accumulators in the layout of wgmma_m64n64k16's (32 n8 blocks: d[4 j + 2 h + e] is
+// row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 j + 2 (t % 4) + e). A is 64 x 16: K-major
+// (sw128_desc, TRANS_A = 0) or MN-major (sw128_desc_mn, TRANS_A = 1); B is 16 x 256 read
+// MN-major (sw128_desc_mn over four 64-column blocks, TRANS_B = 1) or 256 x 16 K-major
+// (TRANS_B = 0). K4's bf16 path: dy = gz W (A K-major, W's [F, C] rows MN-major) and
+// dW = gz^T y (both MN-major: their rows are the contraction).
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], unsigned long long da,
+                                                    unsigned long long db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // Pins registers that an in-flight wgmma reads or writes: the compiler may neither move

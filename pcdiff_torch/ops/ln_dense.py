@@ -23,9 +23,13 @@ summed from it before that rounding, and the parameter gradients are fp32.
 The forward kernel takes W in the product dtype: for a bf16 output the wrapper casts each
 fp32 weight to bf16 before the launch, as the JAX wrapper casts its kernels
 (:func:`_product_weight`, once per version of the parameter), so no block converts W.
-The backward kernel has two paths: fp32 outputs (the train step's) take the fp32 W as it
-is, through launches whose weight-gradient row ranges the wrapper plans from the card's
-tiling (:func:`_dw_rows` on :func:`_bwd_tiling_on`); bf16 outputs take the WMMA path.
+The backward kernel has two paths, each a few launches whose weight-gradient row ranges
+the wrapper plans from the card's tiling (:func:`_plan_rows` on :func:`_bwd_tiling_on`):
+fp32 outputs (the default train step's) take the fp32 W as it is, every product on an fp32
+FMA tile, bound by those products; bf16 outputs (the bf16 model's) take the bf16 copy that
+the forward made for the same parameter version, every product on ``wgmma``, dy kept in
+registers through the LayerNorm's backward, bound as much by the bytes of x, g and dx as by
+the products.
 
 Both kernels have one domain (:func:`_in_domain`: fp32 or bf16, 0 < C <= 256 with
 C % 32 == 0, fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), a pure check made
@@ -362,17 +366,14 @@ def _bwd_kernel_fn(path: str):
         fn = getattr(_native.library("ln_dense_bwd"), f"pcdiff_ln_denses_bwd_{path}")
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         ptrs, ints = ctypes.POINTER(vp), ctypes.POINTER(i32)
-        head = [
+        fn.argtypes = [
             vp, vp, vp, i32,                  # x, ln_scale, ln_bias, n_out
             ptrs, ptrs, ptrs, ints, ints,     # w, b, g, f, act
             vp, vp, vp, ptrs, ptrs,           # dx, dscale, dbias, dw, db
+            vp, ptrs, vp, ptrs, ptrs,         # dy (fp32) or y (bf16), gz, ln_part, dw_part, db_part
+            i32, i32, ctypes.c_float, i32,    # rows, c, eps, x_bf16
+            i32, i32, vp,                     # groups, dw_rows, stream
         ]
-        if path == "fp32":  # dy, gz, ln_part, dw_part, db_part; rows, c, eps, x_bf16, groups,
-            # dw_rows, stream
-            tail = [vp, ptrs, vp, ptrs, ptrs, i32, i32, ctypes.c_float, i32, i32, i32, vp]
-        else:  # stats, gz, ln_part, dw_part, db_part, dw_split; rows, c, eps, x_bf16, stream
-            tail = [vp, ptrs, vp, ptrs, ptrs, ints, i32, i32, ctypes.c_float, i32, vp]
-        fn.argtypes = head + tail
         fn.restype = ctypes.c_int
         _bwd_fns[path] = fn
     return fn
@@ -382,21 +383,23 @@ def _bwd_tiling_fn():
     global _bwd_tiling
     if _bwd_tiling is None:
         fn = _native.library("ln_dense_bwd").pcdiff_ln_denses_bwd_tiling
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
         fn.restype = ctypes.c_int
         _bwd_tiling = fn
     return _bwd_tiling
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_tiling_on(device: int) -> tuple:
-    """(tile side, stage depth, blocks the card holds at once) of K4's fp32 weight-gradient
-    launch on CUDA device ``device``: the first two from the kernel's constants (the tile
-    side is also the row tile of its dy and LayerNorm launches), the last from its occupancy
-    times the card's SM count."""
+def _bwd_tiling_on(device: int, bf16: bool = False) -> tuple:
+    """(tile side, stage depth, blocks the card holds at once) of K4's weight-gradient launch
+    on CUDA device ``device``, on its fp32 path or (``bf16``) its bf16 one: the first two from
+    the kernel's constants (the tile side, 128, is also the row tile of the other launches;
+    the bf16 tile is 128 rows of dW_i by every column), the last from its occupancy times the
+    card's SM count."""
     tile, depth, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(device):
-        err = _bwd_tiling_fn()(ctypes.byref(tile), ctypes.byref(depth), ctypes.byref(per_sm))
+        err = _bwd_tiling_fn()(int(bf16), ctypes.byref(tile), ctypes.byref(depth),
+                               ctypes.byref(per_sm))
     if err or per_sm.value < 1:
         raise RuntimeError(f"ln_dense_bwd tiling query failed: cudaError_t {err}, "
                            f"{per_sm.value} blocks an SM")
@@ -405,29 +408,44 @@ def _bwd_tiling_on(device: int) -> tuple:
 
 
 _DW_FIXED = 2  # a weight-gradient block's fixed work (ring fill, partial tile out), in stages
+# the bf16 path's: its partial tile (128 x 256 fp32, 128 KB) weighs ~3 of its 48 KB stages
+_DW_FIXED_BF16 = 3
 
 
 @functools.lru_cache(maxsize=1024)
-def _dw_rows(rows: int, fs: tuple, c: int, tile: int, depth: int, slots: int) -> int:
-    """The rows a range of K4's fp32 weight-gradient launch takes, a multiple of ``depth``:
-    one block per (``tile`` x ``tile`` tile of the dW_i, range of rows), the count of ranges
-    that minimises waves x (stages a block + its fixed work) over the ``slots`` blocks the card
-    holds at once, the fewest ranges on a tie."""
-    tiles = sum(-(-f // tile) for f in fs) * -(-c // tile)
+def _plan_rows(rows: int, tiles: int, depth: int, slots: int, fixed: int) -> int:
+    """The rows a range of a weight-gradient launch takes, a multiple of ``depth``: one block
+    per (tile, range of rows), the count of ranges that minimises waves x (stages a block +
+    its ``fixed`` work) over the ``slots`` blocks the card holds at once, the fewest ranges
+    on a tie."""
     steps = -(-rows // depth)
     best = None
     for n in range(1, steps + 1):
         per = -(-steps // n)  # stages a range
         ranges = -(-steps // per)
-        key = (-(-tiles * ranges // slots) * (per + _DW_FIXED), ranges)
+        key = (-(-tiles * ranges // slots) * (per + fixed), ranges)
         if best is None or key < best[0]:
             best = (key, per)
     return best[1] * depth
 
 
+def _dw_rows(rows: int, fs: tuple, c: int, tile: int, depth: int, slots: int) -> int:
+    """The rows a range of K4's fp32 weight-gradient launch takes (:func:`_plan_rows` over its
+    ``tile`` x ``tile`` tiles of the dW_i)."""
+    tiles = sum(-(-f // tile) for f in fs) * -(-c // tile)
+    return _plan_rows(rows, tiles, depth, slots, _DW_FIXED)
+
+
+def _dw_rows_bf16(rows: int, fs: tuple, tile: int, depth: int, slots: int) -> int:
+    """The rows a range of K4's bf16 weight-gradient launch takes (:func:`_plan_rows` over its
+    ``tile`` rows of a dW_i by every column)."""
+    return _plan_rows(rows, sum(-(-f // tile) for f in fs), depth, slots, _DW_FIXED_BF16)
+
+
 def _dw_ranges(rows: int, per: int) -> list:
     """The row ranges ``[lo, hi)`` of the weight-gradient launch, ``per`` rows each: range r
-    is block row ``r`` of the grid (csrc/ln_dense_bwd.cu ln_denses_bwd_dw_kernel)."""
+    is block row ``r`` of the grid (csrc/ln_dense_bwd.cu ln_denses_bwd_dw_kernel and
+    ln_denses_bwd_dw_bf16_kernel)."""
     return [(lo, min(rows, lo + per)) for lo in range(0, rows, per)]
 
 
@@ -440,82 +458,44 @@ def _bwd_ints(vals, n):
     return (ctypes.c_int * 3)(*vals, *([0] * (3 - n)))
 
 
-def _launch_bwd_fp32(x, scale, bias, weights, biases, gs, eps, acts, rows, c):
-    """K4's fp32 path: gz (outputs with an activation), dy, the LN backward, dW, the sums."""
+def _launch_bwd_path(path, x, scale, bias, weights, biases, gs, eps, acts, rows, c):
+    """K4's fp32 path (fp32 outputs: gz where there is an activation, dy, the LN backward,
+    dW, the sums) or its bf16 path (bf16 outputs, on the bf16 weight copies: gz where there
+    is an activation, dy with the LN backward, dW, the sums)."""
     dev, n = x.device, len(weights)
+    bf16 = path == "bf16"
+    mxu = torch.bfloat16 if bf16 else torch.float32
     f32 = dict(dtype=torch.float32, device=dev)
     fs = tuple(w.shape[0] for w in weights)
-    tile, depth, slots = _bwd_tiling_on(dev.index)
-    per = _dw_rows(rows, fs, c, tile, depth, slots)
+    tile, depth, slots = _bwd_tiling_on(dev.index, bf16)
+    per = (_dw_rows_bf16(rows, fs, tile, depth, slots) if bf16
+           else _dw_rows(rows, fs, c, tile, depth, slots))
     ranges, tiles = len(_dw_ranges(rows, per)), -(-rows // tile)
     act_fs = tuple(f for f, a in zip(fs, acts) if a is not None)
-    groups = _column_groups(x, act_fs, torch.float32) if act_fs else 1
+    groups = _column_groups(x, act_fs, mxu) if act_fs else 1
+    if bf16:
+        weights = [_product_weight(w) for w in weights]
     dx = torch.empty_like(x)
     dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
-    dws = [torch.empty(w.shape, **f32) for w in weights]
+    dws = [torch.empty((f, c), **f32) for f in fs]
     dbs = [None if b is None else torch.empty(f, **f32) for f, b in zip(fs, biases)]
-    # scratch: dy (then y); g act'(z) where there is an activation; the row tiles' partial
-    # dscale/dbias and db; the ranges' partial dW
-    dy = torch.empty(rows, c, **f32)
-    gz = [torch.empty(rows, f, **f32) if a is not None else None for f, a in zip(fs, acts)]
+    # scratch: dy then y (fp32 path), y (bf16 path); g act'(z) where there is an activation;
+    # the row tiles' partial dscale/dbias and db; the ranges' partial dW
+    ys = torch.empty(rows, c, dtype=mxu, device=dev)
+    gz = [torch.empty(rows, f, dtype=mxu, device=dev) if a is not None else None
+          for f, a in zip(fs, acts)]
     ln_part = torch.empty(2, tiles, c, **f32)
     dw_part = [torch.empty(ranges, f, c, **f32) for f in fs]
     db_part = [None if b is None else torch.empty(tiles, f, **f32) for f, b in zip(fs, biases)]
     with torch.cuda.device(dev):
-        err = _bwd_kernel_fn("fp32")(
+        err = _bwd_kernel_fn(path)(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n,
             _bwd_args(weights, n), _bwd_args(biases, n), _bwd_args(gs, n), _bwd_ints(fs, n),
             _bwd_ints([_ACT_CODES[a] for a in acts], n),
             dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), _bwd_args(dws, n),
-            _bwd_args(dbs, n), dy.data_ptr(), _bwd_args(gz, n), ln_part.data_ptr(),
+            _bwd_args(dbs, n), ys.data_ptr(), _bwd_args(gz, n), ln_part.data_ptr(),
             _bwd_args(dw_part, n), _bwd_args(db_part, n), rows, c, float(eps),
             int(x.dtype == torch.bfloat16), groups, per, _native.stream(dev))
-    if err:
-        raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
-    return dx, dscale, dbias, dws, dbs
-
-
-_WMMA_ROWS = 64  # rows per block of the bf16 path's row pass (csrc/ln_dense_bwd.cu wmma_path)
-_WMMA_TARGET = 264  # blocks the bf16 path's weight-gradient pass aims for: two per SM of an H100
-
-
-def _dw_split(rows: int, f: int, c: int) -> int:
-    """How many row ranges the bf16 path's weight-gradient pass of one [F, C] gradient splits
-    into, so that its (F/64) x (C/64) tiles give about two blocks per SM."""
-    tiles = (f // _TILE_F) * max(1, c // _TILE_F)
-    return max(1, min(-(-rows // _WMMA_ROWS), -(-_WMMA_TARGET // tiles)))
-
-
-def _launch_bwd_bf16(x, scale, bias, weights, biases, gs, eps, acts, rows, c):
-    """K4's bf16 path: the WMMA row pass, the weight-gradient pass per output, the sums."""
-    dev, n = x.device, len(weights)
-    f32 = dict(dtype=torch.float32, device=dev)
-    blocks = -(-rows // _WMMA_ROWS)
-    dx = torch.empty_like(x)
-    dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
-    dws = [torch.empty(w.shape, **f32) for w in weights]
-    dbs = [None if b is None else torch.empty(w.shape[0], **f32)
-           for w, b in zip(weights, biases)]
-    # scratch: LN (mean, rstd) per row; g * act'(z) in bf16 where there is an activation;
-    # per-row-block partial sums of dscale/dbias and db; per-range dW partials
-    stats = torch.empty(rows, 2, **f32)
-    gz = [torch.empty(rows, w.shape[0], dtype=torch.bfloat16, device=dev) if a is not None
-          else None for w, a in zip(weights, acts)]
-    ln_part = torch.empty(2, blocks, c, **f32)
-    splits = [_dw_split(rows, w.shape[0], c) for w in weights]
-    dw_part = [torch.empty(sp, w.shape[0], c, **f32) for sp, w in zip(splits, weights)]
-    db_part = [None if b is None else torch.empty(blocks, w.shape[0], **f32)
-               for w, b in zip(weights, biases)]
-    with torch.cuda.device(dev):
-        err = _bwd_kernel_fn("bf16")(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), n,
-            _bwd_args(weights, n), _bwd_args(biases, n), _bwd_args(gs, n),
-            _bwd_ints([w.shape[0] for w in weights], n),
-            _bwd_ints([_ACT_CODES[a] for a in acts], n),
-            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(), _bwd_args(dws, n),
-            _bwd_args(dbs, n), stats.data_ptr(), _bwd_args(gz, n), ln_part.data_ptr(),
-            _bwd_args(dw_part, n), _bwd_args(db_part, n), _bwd_ints(splits, n), rows, c,
-            float(eps), int(x.dtype == torch.bfloat16), _native.stream(dev))
     if err:
         raise RuntimeError(f"ln_dense_bwd kernel launch failed: cudaError_t {err}")
     return dx, dscale, dbias, dws, dbs
@@ -530,8 +510,8 @@ def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
         if g.dtype != out_dtype or not g.is_contiguous() or g.numel() != rows * w.shape[0]:
             raise ValueError(f"gradient {i} must be a contiguous {out_dtype} [..., "
                              f"{w.shape[0]}] tensor, got {g.dtype} {tuple(g.shape)}")
-    path = _launch_bwd_fp32 if out_dtype == torch.float32 else _launch_bwd_bf16
-    out = path(x, scale, bias, weights, biases, gs, eps, acts, rows, c)
+    path = "fp32" if out_dtype == torch.float32 else "bf16"
+    out = _launch_bwd_path(path, x, scale, bias, weights, biases, gs, eps, acts, rows, c)
     bwd_launches += 1
     return out
 

@@ -1,13 +1,15 @@
 """K4's card time split by device kernel at the train step's LN -> projection sites.
 
 K4 (``csrc/ln_dense_bwd.cu``, behind ``ops.ln_dense._launch_bwd``) is one call of several
-device kernels. This script times each of them at every fp32 site of the train step
-(``chip_smoke.TRAIN_LN_SITES``: rows, outputs, activation and launches a step), under
-``torch.profiler``, over ``--iters`` calls after two warm-up ones, and prints the device time of
-each kernel a call and summed over a step; ``--out`` gets the same table. Run it on a CUDA card
-from the root of a checkout:
+device kernels. This script times each of them at every site of the train step
+(``chip_smoke.TRAIN_LN_SITES``: rows, outputs, activation and launches a step) in ``--dtype``
+(fp32, the default train step's path, or bf16, the bf16 model's), under ``torch.profiler``,
+over ``--iters`` calls after two warm-up ones, and prints the device time of each kernel a call
+and summed over a step; ``--out`` gets the same table. Run it on a CUDA card from the root of a
+checkout:
 
-    python -m pcdiff_torch.scripts.ln_bwd_split [--iters 10] [--out outputs/ln_bwd_split.txt]
+    python -m pcdiff_torch.scripts.ln_bwd_split [--dtype float32|bfloat16] [--iters 10]
+        [--out outputs/ln_bwd_split.txt]
 
 It reaches the kernels only through ``_launch_bwd`` and the site table, so it runs against any
 version of K4 behind that wrapper.
@@ -30,8 +32,8 @@ def kernel_name(key: str) -> str:
     return m.group(1) if m else key
 
 
-def split(site, iters: int) -> dict:
-    """{kernel: device ms a call} of K4 at one site, fp32."""
+def split(site, iters: int, dtype=torch.float32) -> dict:
+    """{kernel: device ms a call} of K4 at one site, in ``dtype``."""
     import chip_smoke as cs
     from pcdiff_torch.ops import ln_dense as ld
     from torch.autograd import DeviceType
@@ -39,8 +41,8 @@ def split(site, iters: int) -> dict:
 
     label, rows, n, fs, act, _, _ = site
     g = torch.Generator(device=cs.DEV).manual_seed(0)
-    x, scale, bias, ws, bs, gs = cs._ln_bwd_inputs(g, rows, n, cs.HD, fs, torch.float32)
-    args = (x, scale, bias, ws, bs, gs, 1e-5, torch.float32, [act] * len(fs))
+    x, scale, bias, ws, bs, gs = cs._ln_bwd_inputs(g, rows, n, cs.HD, fs, dtype)
+    args = (x, scale, bias, ws, bs, gs, 1e-5, dtype, [act] * len(fs))
     for _ in range(2):
         ld._launch_bwd(*args)
     torch.cuda.synchronize()
@@ -60,6 +62,7 @@ def split(site, iters: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--out", default="outputs/ln_bwd_split.txt")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -71,7 +74,7 @@ def main(argv=None) -> int:
     lines, step = [], {}
     for site in cs.TRAIN_LN_SITES:
         label, rows, n, fs, act, _, per_step = site
-        times = split(site, opts.iters)
+        times = split(site, opts.iters, getattr(torch, opts.dtype))
         for name, ms in times.items():
             step[name] = step.get(name, 0.0) + per_step * ms
         parts = ", ".join(f"{name} {ms:.4f}" for name, ms in
@@ -79,7 +82,7 @@ def main(argv=None) -> int:
         lines.append(f"{label} [{rows}x{n}->{'+'.join(map(str, fs))}] act={act} x{per_step}: "
                      f"{sum(times.values()):.4f} ms a call ({parts})")
     total = sum(step.values())
-    lines.append(f"per train step: {total:.3f} ms; " + ", ".join(
+    lines.append(f"per train step ({opts.dtype}): {total:.3f} ms; " + ", ".join(
         f"{name} {ms:.3f} ({100 * ms / total:.1f}%)"
         for name, ms in sorted(step.items(), key=lambda kv: -kv[1])))
     lines.append(f"card: {cs.device_line()}")

@@ -163,27 +163,31 @@ def test_ln_denses_bwd_fp32_matches_pallas_and_autodiff(rng, fs, acts, with_bias
     _compare_ln(got, _split_jax(autodiff, with_bias), rtol=2e-5, atol_rel=2e-5)
 
 
-def test_ln_denses_bwd_bf16_matches_pallas(rng):
-    """The bf16 model's class: y, W and g act'(z) rounded to bf16, fp32 accumulation."""
-    fs, acts, with_bias = (256, 128), ("gelu_tanh", None), (True, True)
-    x, scale, bias, ks, bs, gs = _ln_inputs(rng, 2, 37, 128, fs, with_bias)
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no bias"])
+@pytest.mark.parametrize("act", [None, "gelu", "gelu_tanh", "quick_gelu"], ids=str)
+def test_ln_denses_bwd_bf16_matches_pallas(rng, act, with_bias):
+    """The bf16 model's class: y, W and g act'(z) rounded to bf16, fp32 accumulation; each
+    activation, with and without biases, beside a second output with no activation."""
+    fs, acts, has_bias = (256, 128), (act, None), (with_bias, with_bias)
+    x, scale, bias, ks, bs, gs = _ln_inputs(rng, 2, 37, 128, fs, has_bias)
     gs = [np.array(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32)) for g in gs]
     with pltpu.force_tpu_interpret_mode():
         pallas = ld._pallas_ln_denses_bwd(
             jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(scale), jnp.asarray(bias),
-            tuple(jnp.asarray(k) for k in ks), tuple(jnp.asarray(b) for b in bs),
+            tuple(jnp.asarray(k) for k in ks),
+            tuple(None if b is None else jnp.asarray(b) for b in bs),
             [jnp.asarray(g).astype(jnp.bfloat16) for g in gs], 1e-5, jnp.bfloat16, acts)
     xb = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
     dx, ds, db_, dws, dbs = tld._torch_ln_denses_bwd(
         torch.from_numpy(xb).to(torch.bfloat16), torch.from_numpy(scale),
         torch.from_numpy(bias), [torch.from_numpy(np.ascontiguousarray(k.T)) for k in ks],
-        [torch.from_numpy(b) for b in bs], [torch.from_numpy(g).to(torch.bfloat16) for g in gs],
-        1e-5, torch.bfloat16, list(acts))
+        [None if b is None else torch.from_numpy(b) for b in bs],
+        [torch.from_numpy(g).to(torch.bfloat16) for g in gs], 1e-5, torch.bfloat16, list(acts))
     got = ([dx.float().numpy(), ds.numpy(), db_.numpy()], [w.numpy().T for w in dws],
-           [d.numpy() for d in dbs])
+           [None if d is None else d.numpy() for d in dbs])
     # the same roundings; a summation-order difference can flip one bf16 rounding of y or
     # gz (2^-8 relative), and dx takes one bf16 rounding on output
-    _compare_ln(got, _split_jax(pallas, with_bias), rtol=1e-2, atol_rel=1e-2)
+    _compare_ln(got, _split_jax(pallas, has_bias), rtol=1e-2, atol_rel=1e-2)
 
 
 def test_act_grad_matches_jax(rng):

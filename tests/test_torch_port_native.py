@@ -10,6 +10,9 @@
 - The whole-MLP kernel K5 (``ln_mlp.cu``) is built on K3's loop (``ln_dense_fwd.cuh``) and
   ``ptx.cuh``: ``wgmma`` for its bf16 products, K3's FMA stage for its fp32 ones, no WMMA;
   the cuts of its profiling script (``scripts/mlp_cuts.py``) still apply to its source.
+- K4's bf16 path (``ln_dense_bwd.cu``) has no WMMA, atomics or TF32: K3's bf16 block with
+  K4's epilogue, and dy and dW on ``ptx.cuh``'s ``wgmma`` with shared-memory operands; the
+  cuts of its profiling script (``scripts/ln_bwd_cuts.py``) still apply to its source.
 """
 
 import os
@@ -18,7 +21,7 @@ import re
 import pytest
 
 from pcdiff_torch.ops import _native
-from pcdiff_torch.scripts import mlp_cuts
+from pcdiff_torch.scripts import ln_bwd_cuts, mlp_cuts
 
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
@@ -131,13 +134,41 @@ def test_ln_backward_builds_on_the_ln_dense_loop():
         assert banned not in code.lower(), banned
     # every kernel's name holds ln_denses_bwd, so the profile counts it as K4's (none as K3's)
     kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)", code)
-    assert len(kernels) == 7 and all("ln_denses_bwd" in k and "ln_denses_kernel" not in k
+    assert len(kernels) == 8 and all("ln_denses_bwd" in k and "ln_denses_kernel" not in k
                                      for k in kernels), kernels
     check = (_native.CSRC_DIR / "act_check.cu").read_text()
     assert "act_grad<ACT>(v, pcdiff_ln::DivFast{ok})" in check
+
+
+def test_ln_backward_bf16_path_builds_on_wgmma():
+    """K4's bf16 path: no WMMA, no atomics, no TF32; K3's bf16 block with K4's epilogue (act'
+    on the fast division with its round-to-nearest retake), and dy and dW on ptx.cuh's wgmma
+    with both operands in shared memory, W's and y's rows (and dW's gz) MN-major."""
+    text = (_native.CSRC_DIR / "ln_dense_bwd.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", text)
+    for banned in ("<mma.h>", "wmma", "atomic", "tf32", "store_matrix_sync"):
+        assert banned not in code.lower(), banned
+    bf16 = code[code.index("namespace bf16_path"):code.index("bool aligned16(")]
+    for call in ("pcdiff_ln::block_bf16<TX>(", "DivFast{ok}", "DivRn()",
+                 "wgmma_m64n256k16_ss<0, 1>(", "wgmma_m64n256k16_ss<1, 1>(", "sw128_desc(",
+                 "sw128_desc_mn(", "wgmma_commit()", "wgmma_wait<0>()", "cp_async_16("):
+        assert call in bf16, call
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)", bf16)
+    assert kernels == ["ln_denses_bwd_gz_bf16_kernel", "ln_denses_bwd_dy_bf16_kernel",
+                       "ln_denses_bwd_dw_bf16_kernel"], kernels
+    ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
+    wrapper = ptx[ptx.index("wgmma_m64n256k16_ss("):]
+    assert "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16" in wrapper
+    assert '"n"(TRANS_A), "n"(TRANS_B)' in wrapper  # the transpose bits are immediates
 
 
 @pytest.mark.parametrize("cut", list(mlp_cuts.CUTS), ids=" / ".join)
 def test_mlp_cuts_apply_to_the_kernel_source(cut):
     text = mlp_cuts.cut_source(cut)  # raises if a substitution no longer matches once
     assert text != (_native.CSRC_DIR / "ln_mlp.cu").read_text()
+
+
+@pytest.mark.parametrize("cut", list(ln_bwd_cuts.CUTS))
+def test_ln_bwd_cuts_apply_to_the_kernel_source(cut):
+    text = ln_bwd_cuts.cut_source(cut)  # raises if a substitution no longer matches once
+    assert text != (_native.CSRC_DIR / "ln_dense_bwd.cu").read_text()
