@@ -30,12 +30,16 @@
 //                                        exp2(s log2e - (m log2e + log2 l)) rounded to bf16
 //                                        and multiplied by V: the weights normalised before
 //                                        they are rounded, as the TPU kernel rounds;
-//   BF16_EXP                             K1 under the bf16 exp switch: a first sweep for
-//                                        the final row max (K only, the QK_MAX cut), then
-//                                        t = bf16(s - m), p = bf16(exp2(t log2e)), the sum
-//                                        of the rounded p and PV, O divided by the fp32 sum
-//                                        after PV: the TPU kernel's roundings, which take
-//                                        the final max, in its order.
+//   BF16_EXP                             K1 under the bf16 exp switch at a panel longer than
+//                                        EXP_MAX_KEYS (none on the port's paths): a first
+//                                        sweep for the final row max (K only, the QK_MAX
+//                                        cut), then t = bf16(s - m), p = bf16(exp2(t log2e)),
+//                                        the sum of the rounded p and PV, O divided by the
+//                                        fp32 sum after PV: the TPU kernel's roundings, which
+//                                        take the final max, in its order.
+// K1 under the bf16 exp switch at a panel of at most EXP_MAX_KEYS keys (every panel of the
+// sampler and the train step) runs the same roundings in one pass instead: exp_block, at
+// the end of this file, whose warps split the keys and trade their row maxes.
 // Ragged edges: query rows past nq are computed on zeros and not stored (a warp whose 16
 // rows all lie past nq skips the arithmetic); keys past nk are zero-filled and their scores
 // set to -inf, so they weigh 0 in the max, the sum and PV.
@@ -86,14 +90,14 @@ struct Panel {
   int nq, nk, q0;
 };
 
-// Rows [r0, r0 + ROWS) of a panel (row stride `stride`, D contiguous elements) into a
-// [ROWS, LD] bf16 tile; rows past n are zeros. bf16: cp.async, 16 bytes a copy; fp32: two
-// 16-byte loads, rounded to bf16, one 16-byte store.
-template <int ROWS, int D, typename T>
-__device__ __forceinline__ void stage_rows(bf16* dst, const T* src, long long stride, int r0,
-                                           int n) {
+// Rows [r0, r0 + rows) of a panel (row stride `stride`, D contiguous elements) into a
+// [rows, LD] bf16 tile, by threads tid, tid + nthreads, ...; rows past n are zeros. bf16:
+// cp.async, 16 bytes a copy; fp32: two 16-byte loads, rounded to bf16, one 16-byte store.
+template <int D, typename T>
+__device__ __forceinline__ void stage_rows_by(bf16* dst, const T* src, long long stride,
+                                              int r0, int n, int rows, int tid, int nthreads) {
   constexpr int CH = D / 8;  // 16-byte bf16 chunks a row
-  for (int c = threadIdx.x; c < ROWS * CH; c += THREADS) {
+  for (int c = tid; c < rows * CH; c += nthreads) {
     const int r = c / CH, col = (c % CH) * 8;
     const int row = r0 + r;
     const bool ok = row < n;
@@ -112,6 +116,13 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const T* src, long long st
       *reinterpret_cast<uint4*>(d) = packed;
     }
   }
+}
+
+// Rows [r0, r0 + ROWS) of a panel into a [ROWS, LD] tile by the block's THREADS threads.
+template <int ROWS, int D, typename T>
+__device__ __forceinline__ void stage_rows(bf16* dst, const T* src, long long stride, int r0,
+                                           int n) {
+  stage_rows_by<D>(dst, src, stride, r0, n, ROWS, (int)threadIdx.x, THREADS);
 }
 
 // Per-thread state of a warp's 16 query rows. Lane l holds rows g = l / 4 (index 0) and
@@ -394,6 +405,252 @@ __device__ __forceinline__ void attention_block(const Panel<T>& p, unsigned char
       for (int j = 0; j < D / 8; ++j) store_pair(dst + 8 * j, val[j][2 * r], val[j][2 * r + 1]);
     }
   }
+}
+
+// ---- K1's bf16 exp mode in one pass over the keys: the warps of a block split them ----
+//
+// One block takes one (batch row, head) panel: its K and V, staged once into shared memory,
+// and every query of it. Its warps form row groups of `splits` warps, as many groups as fit
+// in EXP_WARPS (and the panel has 16-row query tiles); warp w of a group holds keys
+// [w slice, min((w + 1) slice, nk)), at most EXP_SLICE of them. A group walks 16-row query
+// tiles (group g takes tiles g, g + groups, ...; the next one's Q loads while this one is
+// computed). Per tile each warp computes S for its keys once and keeps all of it in
+// registers (EXP_SLICE / 2 floats a thread); the warps trade their row maxes through shared
+// memory, so each takes the exact final max (a max does not depend on order: it is the
+// two-sweep mode's m bit for bit). From the registers: t = bf16(s - m),
+// p = bf16(exp2(t log2e)) (two at a time: the packed p is PV's A fragment), the partial
+// sum of the rounded p and the partial O = P V, with no online max and no rescale. The
+// partials go to shared memory, and the group adds them in warp (key) order
+// (deterministic), divides by the fp32 sum after PV and stores. Two barriers a tile and
+// group (named, or the warp's own for a group of one warp), after the maxes and after the
+// partials.
+//
+// What bounds it: as the loop above, the exponentials (one a score on the SFUs) and the
+// fp32 softmax work, now two roundings a score; K and V are read from device memory once a
+// panel, not once a query tile. A thread-block cluster that split the keys over blocks and
+// traded the maxes and partials through distributed shared memory, one cluster barrier a
+// tile, ran slower than the two sweeps: waiting on the barrier across SMs cost more than the
+// first sweep it saved, so the split stays inside the SM.
+
+constexpr int EXP_WARPS = 16;                  // a block's warps at most
+constexpr int EXP_THREADS = EXP_WARPS * 32;
+constexpr int EXP_SLICE = 128;                 // keys a warp holds at most
+constexpr int EXP_CHUNKS = EXP_SLICE / 16;     // its k16 key chunks
+constexpr int EXP_MAX_SMEM = 232448;           // the H100's dynamic shared memory a block
+constexpr int EXP_MAX_KEYS = 1152;             // the longest panel: its K and V fit beside the rest
+
+template <int D>
+struct ExpLayout {
+  static constexpr int LD = Layout<D>::LD;  // bf16 row pitch of K, V and Q
+  static constexpr int LDO = D + 8;         // fp32 row pitch of a partial O tile
+  // K and V (nk rounded up to 16 rows) and two 16-row Q buffers a group in bf16; then a
+  // warp's partial O tile, its rows' maxes and sums in fp32
+  static constexpr int smem(int nk, int warps, int groups) {
+    return ((nk + 15) / 16 * 16 * 2 + 32 * groups) * LD * 2 + warps * 16 * (LDO + 2) * 4;
+  }
+};
+// every plan fits, at K1's head dim: K and V grow with the keys (at most 128 a warp of a
+// group, EXP_MAX_KEYS in all) as the groups shrink, and the two largest cases are one group
+// of 16 warps at EXP_MAX_KEYS keys and two groups of 8 at 1024
+static_assert(ExpLayout<32>::smem(EXP_MAX_KEYS, EXP_WARPS, 1) <= EXP_MAX_SMEM &&
+                  ExpLayout<32>::smem(1024, EXP_WARPS, 2) <= EXP_MAX_SMEM,
+              "EXP_MAX_KEYS: K and V fit beside the rest");
+
+// The block's row groups for a plan: as many groups of `splits` warps as EXP_WARPS holds,
+// and no more than the panel's 16-row query tiles.
+__host__ __device__ constexpr int exp_groups(int splits, int nq) {
+  return EXP_WARPS / splits < (nq + 15) / 16 ? EXP_WARPS / splits : (nq + 15) / 16;
+}
+
+template <typename T>
+__device__ __forceinline__ void store_quad(T* dst, float4 v) {
+  if constexpr (std::is_same<T, bf16>::value)
+    *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  else
+    *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// One panel in the bf16 exp mode (p.q0 is ignored: the block walks every query tile), by
+// exp_groups(splits, nq) groups of `splits` warps: `smem` holds ExpLayout<D>::smem bytes;
+// the warps of a group hold `slice` keys each (the last one the rest), which cover nk.
+template <int D, typename T>
+__device__ __forceinline__ void exp_block(const Panel<T>& p, int splits, int slice,
+                                          unsigned char* smem) {
+  using L = ExpLayout<D>;
+  constexpr int LD = L::LD, LDO = L::LDO;
+  const int nkp = (p.nk + 15) / 16 * 16;
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + nkp * LD;
+  const int groups = exp_groups(splits, p.nq), warps = splits * groups;
+  bf16* sq = sv + nkp * LD;                                    // [groups][2][16][LD]
+  float* so = reinterpret_cast<float*>(sq + groups * 32 * LD);  // [warps][16][LDO]
+  float* smax = so + warps * 16 * LDO;                         // [warps][16]
+  float* ssum = smax + warps * 16;                             // [warps][16]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tig = lane & 3;
+  const int grp = warp / splits, ks = warp % splits;
+  const int nthreads = 32 * splits, gt = threadIdx.x % nthreads;  // the group's threads
+  auto group_sync = [&]() {  // the group's barrier: named, or the warp's own
+    if (splits == 1)
+      __syncwarp();
+    else
+      named_sync(1 + grp, nthreads);
+  };
+  const int k0 = ks * slice;
+  const int len = min(slice, p.nk - k0);  // >= 1: the plan leaves no warp without keys
+  const int chunks = (len + 15) / 16;
+  const int tiles = (p.nq + 15) / 16;
+  bf16* gq = sq + grp * 32 * LD;  // the group's two Q buffers
+  auto stage_q = [&](int tile, int b) {
+    stage_rows_by<D>(gq + b * 16 * LD, p.q, p.q_n, 16 * tile, p.nq, 16, gt, nthreads);
+  };
+
+  // K and the first Q tile, then V, then the second Q tile: V and every later Q tile land
+  // under compute
+  stage_rows_by<D>(sk, p.k, p.k_n, 0, p.nk, nkp, (int)threadIdx.x, 32 * warps);
+  stage_q(grp, 0);  // every group has a first tile
+  cp_async_commit();
+  stage_rows_by<D>(sv, p.v, p.v_n, 0, p.nk, nkp, (int)threadIdx.x, 32 * warps);
+  cp_async_commit();
+  if (grp + groups < tiles) stage_q(grp + groups, 1);
+  cp_async_commit();
+  cp_async_wait<2>();
+  __syncthreads();
+
+  int it = 0;
+  for (int tile = grp; tile < tiles; tile += groups, ++it) {
+    const bf16* qt = gq + (it & 1) * 16 * LD;
+
+    // S = Q K^T over the warp's keys: chunk c, n8 tile h holds keys k0 + 16c + 8h + 2 tig +
+    // (e & 1) of rows g + 8 (e >> 1), as tile_step's s[2c + h]
+    float s[EXP_CHUNKS][2][4];
+    float m[2] = {-INFINITY, -INFINITY};
+    {
+      unsigned qf[D / 16][4];
+      const bf16* q_lane = qt + (lane & 15) * LD + 8 * (lane >> 4);
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) ldmatrix_x4(qf[kc], q_lane + 16 * kc);
+      const bf16* k_lane = sk + (k0 + (lane & 7) + 8 * (lane >> 4)) * LD + 8 * ((lane >> 3) & 1);
+#pragma unroll
+      for (int c = 0; c < EXP_CHUNKS; ++c) {
+        if (c >= chunks) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) s[c][h][0] = s[c][h][1] = s[c][h][2] = s[c][h][3] = 0.f;
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc) {
+          unsigned b[4];
+          ldmatrix_x4(b, k_lane + 16 * c * LD + 16 * kc);
+          mma_bf16(s[c][0], qf[kc], b[0], b[1]);
+          mma_bf16(s[c][1], qf[kc], b[2], b[3]);
+        }
+        if (16 * c + 16 > len) {  // the warp's last chunk, partial: keys past it weigh 0
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (16 * c + 8 * h + 2 * tig + (e & 1) >= len) s[c][h][e] = -INFINITY;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) m[e >> 1] = fmaxf(m[e >> 1], s[c][h][e]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+      }
+    }
+    if (tig == 0) {
+      smax[warp * 16 + g] = m[0];
+      smax[warp * 16 + g + 8] = m[1];
+    }
+    group_sync();  // the group's maxes are written
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the final max: lane tig reads warps tig, tig + 4, ...
+      float x = -INFINITY;
+#pragma unroll
+      for (int j = tig; j < EXP_WARPS; j += 4)
+        if (j < splits) x = fmaxf(x, smax[(grp * splits + j) * 16 + g + 8 * r]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      m[r] = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    }
+
+    // the TPU kernel's roundings against the final max, two scores at a time, the sum of
+    // the rounded weights, and O = P V with the packed weights as A fragments
+    float l[2] = {0.f, 0.f};
+    float o[D / 8][4];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    if (it == 0) {  // V, once: every thread of the block staged it
+      cp_async_wait<1>();
+      named_sync(15, 32 * warps);
+    }
+    {
+      const bf16* v_lane = sv + (k0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+#pragma unroll
+      for (int c = 0; c < EXP_CHUNKS; ++c) {
+        if (c >= chunks) break;
+        unsigned a[4];  // a[2h + r]: n8 tile h, row g + 8r, keys 2 tig + {0, 1}
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const unsigned t = pack_bf16(s[c][h][2 * r] - m[r], s[c][h][2 * r + 1] - m[r]);
+            const unsigned pp = pack_bf16(ex2(bf16_lo(t) * LOG2E), ex2(bf16_hi(t) * LOG2E));
+            l[r] += bf16_lo(pp);
+            l[r] += bf16_hi(pp);
+            a[2 * h + r] = pp;
+          }
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, v_lane + 16 * c * LD + 16 * dp);
+          mma_bf16(o[2 * dp], a, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], a, b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the warp's partial O and sum into its slot
+      const float lr = row_sum(l[r]);
+      float* at = so + (warp * 16 + g + 8 * r) * LDO + 2 * tig;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(at + 8 * j) = make_float2(o[j][2 * r], o[j][2 * r + 1]);
+      if (tig == 0) ssum[warp * 16 + g + 8 * r] = lr;
+    }
+    cp_async_wait<0>();  // the next Q tile: this thread's copies
+    group_sync();        // the partials and the next Q tile are in; S is done with Q
+
+    // the tile's rows: the partials added in warp order, divided by the sum after PV
+    for (int i = gt; i < 16 * (D / 4); i += nthreads) {
+      const int row = i / (D / 4), col = 4 * (i % (D / 4));
+      if (16 * tile + row >= p.nq) break;
+      const float* at = so + (grp * splits * 16 + row) * LDO + col;
+      const float* sums = ssum + grp * splits * 16 + row;
+      float4 acc = *reinterpret_cast<const float4*>(at);
+      float sum = sums[0];
+#pragma unroll 4
+      for (int j = 1; j < splits; ++j) {
+        const float4 x = *reinterpret_cast<const float4*>(at + j * 16 * LDO);
+        acc.x += x.x;
+        acc.y += x.y;
+        acc.z += x.z;
+        acc.w += x.w;
+        sum += sums[j * 16];
+      }
+      const float inv = 1.f / sum;
+      store_quad(p.o + (long long)(16 * tile + row) * p.o_n + col,
+                 make_float4(acc.x * inv, acc.y * inv, acc.z * inv, acc.w * inv));
+    }
+    if (tile + 2 * groups < tiles) stage_q(tile + 2 * groups, it & 1);  // into this tile's
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace pcdiff_attn

@@ -19,14 +19,19 @@
 // batch row), 8 warps; K/V tiles of 64 keys in a 3-stage cp.async ring (fp32 inputs are
 // rounded to bf16 through registers as they are staged); S, P and the output accumulator
 // in mma.sync fragments, the online max and sum in registers, exp2 of log2e-scaled scores.
-// Under the bf16 exp switch (bf16_exp = 1) the loop runs its BF16_EXP mode instead, the
-// TPU kernel's softmax_dtype=bfloat16 panel: a first sweep over K for the final row max,
-// then t = bf16(s - m), p = bf16(exp2(t log2e)), the fp32 sum of the rounded p, PV and the
-// division after it, so each weight takes the TPU kernel's two roundings against the same
-// max; the extra sweep costs a second pass of Q K^T.
+// Under the bf16 exp switch (bf16_exp = 1) each weight takes the TPU kernel's
+// softmax_dtype=bfloat16 roundings against the final row max: t = bf16(s - m),
+// p = bf16(exp2(t log2e)), the fp32 sum of the rounded p, PV and the division after it. A
+// panel of at most EXP_MAX_KEYS keys (every panel of the sampler and the train step) runs
+// it in one pass (attention_fwd.cuh's exp_block): one block of up to 16 warps a (batch
+// row, head) panel, K and V resident in shared memory, row groups of warps splitting the
+// keys, each warp holding its scores in registers, the final max and the partial outputs
+// traded in shared memory. The wrapper plans (splits, slice) and this entry checks the
+// plan. A longer panel (splits = 0) keeps the loop's two-sweep BF16_EXP mode: a first sweep
+// over K for the final max, then the second, at the cost of a second pass of Q K^T.
 // The TPU kernel's design of one whole K/V panel per batch row, sized for 128 MB of VMEM,
-// is not carried over. Ragged edges (643, 1025, 257, 255, 127 are multiples of no tile) are
-// masked in the loop.
+// is carried over only by the one-pass mode, whose panels fit the SM's shared memory.
+// Ragged edges (643, 1025, 257, 255, 127 are multiples of no tile) are masked in the loop.
 
 #include <cstdint>
 #include <initializer_list>
@@ -36,6 +41,10 @@
 namespace {
 
 using pcdiff_attn::bf16;
+using pcdiff_attn::EXP_MAX_KEYS;
+using pcdiff_attn::EXP_SLICE;
+using pcdiff_attn::EXP_WARPS;
+using pcdiff_attn::ExpLayout;
 using pcdiff_attn::Layout;
 using pcdiff_attn::Panel;
 
@@ -66,21 +75,71 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
   return (int)cudaGetLastError();
 }
 
+// The bf16 exp mode in one pass: one block a (batch row, head) panel.
+template <typename T>
+__global__ void __launch_bounds__(pcdiff_attn::EXP_THREADS, 1)
+attention_mh_exp_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ o,
+                        int nq, int nk, int heads, int splits, int slice) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long hd = (long long)heads * D;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const long long qo = (long long)b * nq * hd + h * D, kv = (long long)b * nk * hd + h * D;
+  const Panel<T> p{q + qo, k + kv, v + kv, o + qo, hd, hd, hd, hd, nq, nk, 0};
+  pcdiff_attn::exp_block<D>(p, splits, slice, smem);
+}
+
+template <typename T>
+int launch_exp(const void* q, const void* k, const void* v, void* o, int batch, int nq,
+               int nk, int heads, int splits, int slice, cudaStream_t s) {
+  static bool configured = false;  // dynamic shared memory above 48 KB needs the attribute
+  if (!configured) {
+    const cudaError_t e = cudaFuncSetAttribute(attention_mh_exp_kernel<T>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               pcdiff_attn::EXP_MAX_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  const int groups = pcdiff_attn::exp_groups(splits, nq), warps = splits * groups;
+  const dim3 grid(1, heads, batch);
+  attention_mh_exp_kernel<T><<<grid, 32 * warps, ExpLayout<D>::smem(nk, warps, groups), s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), nq, nk, heads, splits, slice);
+  return (int)cudaGetLastError();
+}
+
+// The one-pass mode's plan: row groups of `splits` warps (1 to EXP_WARPS) of `slice` keys
+// each (a multiple of 16, at most EXP_SLICE), the last one the rest, none of them empty, in
+// a panel of at most EXP_MAX_KEYS keys.
+bool valid_plan(int nk, int splits, int slice) {
+  return splits >= 1 && splits <= EXP_WARPS && slice >= 16 && slice % 16 == 0 &&
+         slice <= EXP_SLICE && nk <= EXP_MAX_KEYS && (long long)(splits - 1) * slice < nk &&
+         nk <= (long long)splits * slice;
+}
+
 }  // namespace
 
 // q, k, v, o: device pointers of one dtype (is_bf16 = 1: bf16, 0: fp32), 16-byte aligned;
-// bf16_exp = 1 selects the bf16 exp mode. Returns the cudaError_t of the launch (0 on
-// success). Launches on `stream` and does not synchronise.
+// bf16_exp = 1 selects the bf16 exp mode, in one pass with `splits` warps of `slice` keys
+// (the wrapper's plan, refused unless it covers nk with no slice empty), or with
+// splits = 0 in two sweeps; the default mode takes splits = slice = 0. Returns the
+// cudaError_t of the launch (0 on success). Launches on `stream` and does not synchronise.
 extern "C" int pcdiff_attention_mh_fwd(const void* q, const void* k, const void* v, void* o,
                                        int batch, int nq, int nk, int heads, int head_dim,
-                                       int is_bf16, int bf16_exp, void* stream) {
+                                       int is_bf16, int bf16_exp, int splits, int slice,
+                                       void* stream) {
   if (head_dim != D || batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 ||
       batch > 65535 || heads > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((splits || slice) && !(bf16_exp && valid_plan(nk, splits, slice)))
     return (int)cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<std::uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int FULL = pcdiff_attn::FULL, EXP = pcdiff_attn::BF16_EXP;
+  if (bf16_exp && splits)
+    return is_bf16 ? launch_exp<bf16>(q, k, v, o, batch, nq, nk, heads, splits, slice, s)
+                   : launch_exp<float>(q, k, v, o, batch, nq, nk, heads, splits, slice, s);
   if (bf16_exp)
     return is_bf16 ? launch<EXP, bf16>(q, k, v, o, batch, nq, nk, heads, s)
                    : launch<EXP, float>(q, k, v, o, batch, nq, nk, heads, s);

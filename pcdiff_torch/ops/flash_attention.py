@@ -24,8 +24,9 @@ the TPU, so that the fp32 model holds to the JAX model on the CPU.
 default): under ``"bfloat16"`` the forward computes the exponentials as the TPU kernel's
 bf16 exp panel does, t = bf16(s - rowmax(s)) with s in fp32, p = bf16(exp(t)), the row sum
 of the rounded p in fp32, O = p V with bf16 operands and fp32 accumulation, out = O / l. K1
-runs it as a mode of its loop; the backward (K2) ignores the switch, as the JAX backward
-does.
+runs it in one pass over the keys where :func:`_exp_plan` splits them over the warps of a
+block (every panel of the sampler and the train step), else in two sweeps; the backward
+(K2) ignores the switch, as the JAX backward does.
 
 Each kernel has a domain, a pure check of the shapes and dtypes it is built for
 (:func:`_k1_domain`: head dim 32; :func:`_k7_domain`: head dim 32 or 64; both within
@@ -75,6 +76,13 @@ k7_launches = 0  # head-split (K7) launches, likewise
 _K7_HEAD_DIMS = (32, 64)  # the head dims K7 is built for
 _GRID_YZ = 65535  # a grid's y and z extent: K1/K2 put heads and batch there, K7 query tiles
 _K7_QUERY_TILE = 64  # queries a K7 block, as csrc/attention.cu checks its grid (BQ)
+# K1's one-pass bf16 exp mode (csrc/attention_fwd.cuh exp_block): one block of at most 16
+# warps a panel, in row groups of warps that split the keys, each warp holding the scores of
+# at most 128 of them in registers; K and V of at most 1152 keys fit the block's shared
+# memory beside the rest
+_EXP_WARPS = 16
+_EXP_SLICE = 128
+_EXP_MAX_KEYS = 1152
 _fn = None
 _bwd_fn = None
 _k7_fn = None
@@ -181,11 +189,24 @@ def _torch_attention_mh_bwd(q, k, v, g, num_heads: int, mxu_dtype=torch.bfloat16
     return _fold(dq, q), _fold(dk, k), _fold(dv, v)
 
 
+def _exp_plan(nk: int):
+    """K1's plan for a panel of ``nk`` keys under the bf16 exp switch: ``(splits, slice)``,
+    row groups of ``splits`` warps of ``slice`` keys (a multiple of 16, at most
+    ``_EXP_SLICE``; the last warp takes the rest, and none is empty) that cover the panel in
+    one pass: the fewest warps whose slices hold the keys (fewer warps a row trade fewer
+    maxes and partials); or None past ``_EXP_MAX_KEYS``, the two-sweep loop."""
+    if nk > _EXP_MAX_KEYS:
+        return None
+    want = -(-nk // _EXP_SLICE)
+    slice_ = 16 * -(-nk // (16 * want))
+    return -(-nk // slice_), slice_
+
+
 def _kernel_fn():
     global _fn
     if _fn is None:
         fn = _native.library("attention_mh").pcdiff_attention_mh_fwd
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -217,12 +238,15 @@ def _launch(q, k, v, num_heads: int):
     global launches
     _check(q, k, v, num_heads)
     b, nq, hd = q.shape
+    nk = k.shape[1]
+    bf16_exp = _SOFTMAX_DTYPE == "bfloat16"
+    splits, slice_ = (_exp_plan(nk) or (0, 0)) if bf16_exp else (0, 0)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, nq, k.shape[1], num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
-            int(_SOFTMAX_DTYPE == "bfloat16"), _native.stream(q.device))
+            b, nq, nk, num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
+            int(bf16_exp), splits, slice_, _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh kernel launch failed: cudaError_t {err}")
     launches += 1

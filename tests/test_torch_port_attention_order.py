@@ -6,8 +6,11 @@ its exponentials as ``exp2`` of log2e-scaled scores (one fused multiply-add, one
 and rounds where its numerics class says: K1 rounds the unnormalised P to bf16 against the
 running max and divides by the fp32 row sum after PV; K7 takes a first sweep for the row max
 and sum and then rounds ``exp2(s log2e - (m log2e + log2 l))``, the normalised weight, to
-bf16. K1's bf16 exp mode takes K7's first sweep for the final row max alone, then rounds
-bf16(s - m) and its exp2 to bf16 as the TPU kernel's exp panel does. This file repeats those
+bf16. K1's bf16 exp mode rounds bf16(s - m) and its exp2 to bf16 against the final row max,
+as the TPU kernel's exp panel does: in one pass where ``fa._exp_plan`` splits the panel's
+keys over the warps of a block (each warp's slice max, the final max from them, partial sums
+and outputs per slice added in warp order), else after a first sweep for the max alone (K7's
+first sweep without the sum). This file repeats those
 orders in torch and holds them to ``_torch_attention_mh(..., mxu_dtype=bf16[, exp_dtype=
 bf16])`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the kernels
 to on the card (``ATTN_ATOL``, ``K7_TOL[bf16]``), with bf16 inputs at 8 heads of 32,
@@ -109,6 +112,34 @@ def _emulate_k1_bf16_exp(q, k, v, round_t=True, round_p=True):
     return o * (1.0 / l)
 
 
+def _slices(nk, plan):
+    """The key ranges of a one-pass plan (splits, slice): warp w's [w slice, ...), in order."""
+    splits, size = plan
+    return [(w * size, min((w + 1) * size, nk)) for w in range(splits)]
+
+
+def _emulate_k1_bf16_exp_split(q, k, v, plan):
+    """K1's bf16 exp mode in one pass (``exp_block``): each warp's S over its slice of the
+    keys and the slice's row max; the final max, the max of the slice maxes; per slice
+    t = bf16(s - m), p = bf16(exp2(t log2e)), a partial fp32 sum of the rounded p and a
+    partial O = p V in fp32; the partials added in warp order, then O divided by the sum
+    after PV."""
+    ranges = _slices(k.shape[-2], plan)
+    s = [q @ k[..., a:b, :].transpose(-1, -2) for a, b in ranges]
+    m = torch.stack([t.amax(-1, keepdim=True) for t in s]).amax(0)
+    o, l = 0.0, 0.0
+    for t, (a, b) in zip(s, ranges):
+        p = torch.exp2((t - m).bfloat16().float() * LOG2E).bfloat16().float()
+        l = l + p.sum(-1, keepdim=True)
+        o = o + p @ v[..., a:b, :]
+    return o * (1.0 / l)
+
+
+def _emulate_k1_bf16_exp_one_pass(q, k, v):
+    """The one-pass order at the plan the wrapper gives the panel."""
+    return _emulate_k1_bf16_exp_split(q, k, v, fa._exp_plan(k.shape[-2]))
+
+
 def _inputs(nq, nk, seed, dtype=torch.bfloat16):
     """chip_smoke.py's inputs: q scaled as a pre-scaled query, k and v standard normal."""
     rng = np.random.default_rng(seed)
@@ -124,14 +155,18 @@ def _split(t):
     return t.float().reshape(b, n, HEADS, D).transpose(1, 2)
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K7", "K1 bf16 exp"])
+K1_ORDERS = {"K1": _emulate_k1, "K1 bf16 exp": _emulate_k1_bf16_exp,
+             "K1 bf16 exp one pass": _emulate_k1_bf16_exp_one_pass}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K7", "K1 bf16 exp", "K1 bf16 exp one pass"])
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_loop_order_within_card_tolerance(site, kernel):
     nq, nk = SHAPES[site]
     q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site))
     if kernel.startswith("K1"):
-        exp = torch.bfloat16 if kernel == "K1 bf16 exp" else torch.float32
-        emulate = _emulate_k1_bf16_exp if exp == torch.bfloat16 else _emulate_k1
+        exp = torch.float32 if kernel == "K1" else torch.bfloat16
+        emulate = K1_ORDERS[kernel]
         ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16,
                                      exp_dtype=exp).float()
         got = emulate(*(_split(t) for t in (q, k, v)))
@@ -149,6 +184,7 @@ def test_loop_order_within_card_tolerance(site, kernel):
 
 VARIANTS = {  # name: (the order, whether it is the mode's)
     "bf16 exp": (_emulate_k1_bf16_exp, True),
+    "bf16 exp one pass": (_emulate_k1_bf16_exp_one_pass, True),
     "s - m not rounded": (lambda q, k, v: _emulate_k1_bf16_exp(q, k, v, round_t=False), False),
     "exp not rounded": (lambda q, k, v: _emulate_k1_bf16_exp(q, k, v, round_p=False), False),
     "default mode": (_emulate_k1, False),
@@ -158,10 +194,11 @@ VARIANTS = {  # name: (the order, whether it is the mode's)
 @pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_bf16_exp_mean_limit_tells_the_roundings(site, variant):
-    """fp32 inputs, as phase 15 of chip_smoke.py reads them: the mode's order keeps its mean
-    error against the plain version under ATTN_EXP_MEAN (~3.5e-8 here, where both sum the
-    scores alike), and an order without one of its roundings, or K1's default mode, reads
-    above it (~1.3e-4 to ~3.1e-4)."""
+    """fp32 inputs, as phase 15 of chip_smoke.py reads them: the mode's orders (two sweeps,
+    and one pass over the plan's slices) keep their mean error against the plain version
+    under ATTN_EXP_MEAN (~3.5e-8 here, where both sum the scores alike), and an order
+    without one of its roundings, or K1's default mode, reads above it (~1.3e-4 to
+    ~3.1e-4)."""
     nq, nk = SHAPES[site]
     q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site), dtype=torch.float32)
     ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16,
@@ -171,3 +208,34 @@ def test_bf16_exp_mean_limit_tells_the_roundings(site, variant):
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     mean = (got - ref).abs().mean().item()
     assert (mean <= ATTN_EXP_MEAN) is sound, f"{variant} {site}: mean abs error {mean:.3e}"
+
+
+# Every key count the paths give K1 (the backbone's 643 and 1024, the encoders' 1025, 257, 256,
+# 255 and 127), the one-pass plans' capacity (1152 keys) and one key past it
+PLAN_NKS = [127, 255, 256, 257, 643, 1024, 1025, 1152, 1153]
+
+
+@pytest.mark.parametrize("nk", PLAN_NKS)
+def test_exp_plan_covers_the_panel_and_keeps_its_max(nk):
+    """The plan splits the keys into at most 16 non-empty slices (a row group's warps) of a
+    multiple of 16 keys, at most 128, that cover the panel exactly, or past the capacity
+    sends it to the two-sweep loop; the final max taken from the slices' maxes is the two-sweep loop's
+    (64-key tiles) bit for bit."""
+    plan = fa._exp_plan(nk)
+    if nk > fa._EXP_MAX_KEYS:
+        assert plan is None
+        return
+    splits, size = plan
+    assert 1 <= splits <= fa._EXP_WARPS and size % 16 == 0 and size <= fa._EXP_SLICE
+    ranges = _slices(nk, plan)
+    assert ranges[0][0] == 0 and ranges[-1][1] == nk
+    assert all(a < b for a, b in ranges)  # none empty
+    assert all(b == c for (_, b), (c, _) in zip(ranges, ranges[1:]))  # contiguous
+    q, k, _ = (_split(t) for t in _inputs(37, nk, seed=nk))
+    slice_max = torch.stack([(q @ k[..., a:b, :].transpose(-1, -2)).amax(-1)
+                             for a, b in ranges]).amax(0)
+    two_sweep = torch.full(slice_max.shape, -math.inf)
+    for k0 in range(0, nk, TILE):
+        two_sweep = torch.maximum(two_sweep,
+                                  (q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)).amax(-1))
+    assert torch.equal(slice_max, two_sweep)

@@ -216,6 +216,34 @@ def test_launch_still_refuses_shapes_outside_the_domain():
                    torch.float32, None)
 
 
+@pytest.mark.parametrize("softmax,nk,want", [
+    ("float32", 643, (0, 0, 0)),      # the default mode takes no plan
+    ("bfloat16", 643, (1, 6, 112)),   # one pass: 6 warps of 112 keys, the last 83
+    ("bfloat16", 1025, (1, 9, 128)),  # 9 warps of 128 keys, the last 1
+    ("bfloat16", 4000, (1, 0, 0)),    # past 1152 keys: the two-sweep loop
+])
+def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, want):
+    """K1's launch passes (bf16_exp, splits, slice) from ``fa._exp_plan``; the kernel is
+    stood in for by a function that records them."""
+    seen = []
+
+    def kernel(*args):
+        seen.append(args[10:13])
+        return 0
+
+    monkeypatch.setattr(fa, "_kernel_fn", lambda: kernel)
+    monkeypatch.setattr(fa._native, "stream", lambda device: 0)
+    monkeypatch.setattr(fa.torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(fa, "launches", 0)
+    q, kv = torch.zeros(1, 3, 256), torch.zeros(1, nk, 256)
+    fa.set_attention_softmax_dtype(softmax)
+    try:
+        fa._launch(q, kv, kv, 8)
+    finally:
+        fa.set_attention_softmax_dtype("float32")
+    assert seen == [want] and fa.launches == 1
+
+
 def test_product_weight_is_cast_once_a_version():
     w = torch.nn.Parameter(torch.randn(64, 32))
     first = ld._product_weight(w)

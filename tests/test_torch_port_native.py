@@ -7,6 +7,9 @@
   the ladder has a key loop of its own, and K7's own loops belong to its fp32 kernel alone.
   The backward K2 (``attention_mh_bwd.cu``) is built on the same primitives of ``ptx.cuh``
   (``mma.sync``, ``ldmatrix``, ``cp.async``, ``ex2.approx``), with no WMMA and no atomics.
+- K1's one-pass bf16 exp mode and ``fa._exp_plan`` agree on its warps, the keys a warp holds
+  and the longest panel it takes; the cuts of its profiling script (``scripts/exp_cuts.py``)
+  still apply to its source.
 - The whole-MLP kernel K5 (``ln_mlp.cu``) is built on K3's loop (``ln_dense_fwd.cuh``) and
   ``ptx.cuh``: ``wgmma`` for its bf16 products, K3's FMA stage for its fp32 ones, no WMMA;
   the cuts of its profiling script (``scripts/mlp_cuts.py``) still apply to its source.
@@ -21,7 +24,7 @@ import re
 import pytest
 
 from pcdiff_torch.ops import _native
-from pcdiff_torch.scripts import ln_bwd_cuts, mlp_cuts
+from pcdiff_torch.scripts import exp_cuts, ln_bwd_cuts, mlp_cuts
 
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
@@ -89,6 +92,18 @@ def test_attention_backward_builds_on_ptx_primitives():
     # no WMMA (whose fragments round-trip through shared memory), no atomics, no accurate expf
     for banned in ("wmma", "<mma.h>", "store_matrix_sync", "atomic", "expf("):
         assert banned not in code, banned
+
+
+def test_exp_plan_matches_the_one_pass_kernel():
+    """``fa._exp_plan`` plans with the one-pass kernel's warps, keys a warp and panel length."""
+    from pcdiff_torch.ops import flash_attention as fa
+
+    text = (_native.CSRC_DIR / "attention_fwd.cuh").read_text()
+    for name, want in (("EXP_WARPS", fa._EXP_WARPS), ("EXP_SLICE", fa._EXP_SLICE),
+                       ("EXP_MAX_KEYS", fa._EXP_MAX_KEYS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == want, name
+    assert "exp_block<D>(p, splits, slice, smem)" in (
+        _native.CSRC_DIR / "attention_mh.cu").read_text()
 
 
 def test_ln_dense_grid_is_one_dimensional():
@@ -172,3 +187,10 @@ def test_mlp_cuts_apply_to_the_kernel_source(cut):
 def test_ln_bwd_cuts_apply_to_the_kernel_source(cut):
     text = ln_bwd_cuts.cut_source(cut)  # raises if a substitution no longer matches once
     assert text != (_native.CSRC_DIR / "ln_dense_bwd.cu").read_text()
+
+
+@pytest.mark.parametrize("cut", list(exp_cuts.CUTS))
+def test_exp_cuts_apply_to_the_kernel_source(cut):
+    text = exp_cuts.cut_source(cut)  # raises if a substitution no longer matches once
+    assert text != (_native.CSRC_DIR / "attention_fwd.cuh").read_text()
+    assert "exp_block" in text
