@@ -12,25 +12,44 @@
 // the max and the sum; the weights normalised by the fp32 row sum BEFORE the PV product and
 // rounded to v's dtype; PV accumulated in fp32 and cast to q's dtype. Unlike the
 // multi-head kernel (attention_mh.cu) nothing is rounded to bf16 that is not bf16 already:
-// bf16 inputs go to the tensor cores (mma.sync, fp32 accumulation), fp32 inputs to fp32 FMA
-// on the CUDA cores (no TF32).
+// bf16 inputs go to the tensor cores as they are (mma.sync, fp32 accumulation), fp32 inputs
+// as 3xTF32 (each operand split into two TF32 parts, three products), about fp32's accuracy.
 //
-// What bounds it on the H100: the multi-head kernel's work (two products 32 or 64 deep and
-// wide, a softmax over every score) plus Q K^T and the exponentials a second time: the
-// normalise-then-round order needs the final row max and sum before the first weight is
-// rounded, and a row's scores over all keys do not fit on chip for a tile of queries, so the
-// keys are swept twice. At D = 32 the exponentials on the SFUs are the floor, not the
-// tensor cores; device memory is not the limit.
+// What bounds it on the H100: the two products 32 or 64 deep and wide, and a softmax over
+// every score (at D = 32 one exponential a score on the SFUs weighs as much as the bf16
+// products); device memory is not the limit.
+//   bf16: the normalise-then-round order needs the final row max and sum before the first
+//     weight is rounded, and a row's scores over all keys do not fit on chip for a tile of
+//     queries, so the keys are swept twice: Q K^T and the exponentials a second time.
+//   fp32: the rounding to v's dtype does nothing, so normalising before PV or after it
+//     differs only in the fp32 order, and one sweep with an online max and sum suffices.
+//     Each product is three TF32 tensor-core products (lo hi + hi lo + hi hi): at the TF32
+//     peak (495 TFLOP/s) a third of it, 2.5x fp32 FMA's. Splitting the operands into their
+//     TF32 parts is CUDA-core work beside them; cut at compile time (scripts/k7_cuts.py),
+//     the products' small terms take about half the time and the K/V splits a fifth, the
+//     exponentials nothing that does not overlap.
 // What the design does about it:
 //   bf16: attention_fwd.cuh's NORMALISED mode, the loop K1 runs: one block per (128
 //     queries, b * h), 8 warps, K/V tiles of 64 keys in a cp.async ring, S, P and the output
 //     in mma.sync fragments. The first sweep stages K alone and keeps the online row max and
 //     sum; the second computes exp2(s log2e - (m log2e + log2 l)), one exponential and no
 //     division a weight, rounds it to bf16 and multiplies by V.
-//   fp32: one block per (64 queries, b * h), four warps, the same two sweeps over tiles of
-//     64 staged in shared memory, 8 x 4 scores and a 4 x D/8 output tile a thread in FMA.
-// Ragged edges: query rows past Nq are computed on zeros and not stored; keys past Nk are
-// zero-filled and weigh 0.
+//   fp32: one block per (64 queries, b * h), four warps of 16 rows, three blocks an SM at
+//     D = 32 (at four, 128 registers spilled and ran slower), one sweep over K/V tiles of 64
+//     keys in a 2-stage cp.async ring (row pitch D + 4 words: conflict-free fragment reads).
+//     Q is split once into shared memory, its A fragments read each tile (held in registers
+//     they took D of them a thread and the loop spilled). Per tile and warp: S = Q K^T by
+//     m16n8k8 TF32 mma.sync in 3xTF32, the k8 step outer so that consecutive products go to
+//     different score tiles (Q's and K's fragments by ldmatrix of 32-bit rows); the online
+//     row max and sum on S's accumulators (one ex2.approx of a log2e-scaled score a weight, O
+//     rescaled by ex2 of the max's change); O += P V in 3xTF32, P's A fragments split from
+//     S's accumulators in place (the k8 step's keys numbered 2c, 2c + 1, so no shuffle). Each
+//     warp splits the K and V fragments it reads, two integer operations a rounding (ptxas
+//     gives cvt.rna.tf32.f32 four): a split once a tile by the block into shared memory
+//     measured slower (its pass and second barrier stall every warp of the block, and it
+//     reads twice the fragments). O is divided by the fp32 row sum once an element at the end.
+// Ragged edges: query rows past Nq are computed on zeros and not stored (a warp whose rows
+// all lie past Nq skips the arithmetic); keys past Nk are zero-filled and weigh 0.
 
 #include <cstdint>
 #include <initializer_list>
@@ -66,145 +85,234 @@ head_split_attention_bf16_kernel(const Args a) {
   pcdiff_attn::attention_block<pcdiff_attn::NORMALISED, D>(p, smem);
 }
 
-// ---- fp32: FMA on the CUDA cores ----------------------------------------------------------
+// ---- fp32: 3xTF32 on the tensor cores -------------------------------------------------------
 
-constexpr int BQ = 64;           // queries per block
-constexpr int BK = 64;           // keys per K/V tile
-constexpr int THREADS = 128;
+constexpr int BQ = 64;            // queries per block: four warps of 16 rows
+constexpr int BK = 64;            // keys per K/V tile
+constexpr int THREADS = BQ / 16 * 32;
+constexpr int STAGES = 2;         // K/V tiles in the ring
+constexpr int NT = BK / 8;        // n8 score tiles a key tile, and k8 steps of its PV product
 
 template <int D>
 struct Cfg {
-  // Row pitches, odd against bank conflicts.
-  static constexpr int LD = D + 1;       // Q, K, V tiles
-  static constexpr int LD_S = BK + 1;    // fp32 scores, then the weights
-  static constexpr int TILE_BYTES = (BQ * LD * 4 + 127) / 128 * 128;
-  static constexpr int S_BYTES = (BQ * LD_S * 4 + 127) / 128 * 128;
-  static constexpr int SMEM = 3 * TILE_BYTES + S_BYTES;
+  // Row pitch in words: D + 4 puts the 8 rows of a fragment read 4 banks apart (K: key g,
+  // dims t and t + 4; V: keys 2t and 2t + 1, dim g), and keeps each row 16-byte aligned
+  static constexpr int LD = D + 4;
+  static constexpr int TILE = BK * LD;  // floats: a K or V tile, or Q's hi or lo parts
+  // the ring's stages of K and V, then the block's Q split into its hi and lo parts
+  static constexpr int SMEM = (STAGES + 1) * 2 * TILE * 4;  // bytes
 };
 
-// rows [n0, n0 + 64) of one (b, h) panel into a [64, LD] tile; rows past n are zeros
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long stride,
-                                          int n0, int n) {
-  for (int i = threadIdx.x; i < BK * D; i += THREADS) {
-    const int r = i / D, c = i % D;
-    const int row = n0 + r;
-    dst[r * LD + c] = row < n ? src[(long long)row * stride + c] : 0.f;
+// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi)
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = pcdiff_ptx::round_tf32(x);
+  lo = pcdiff_ptx::round_tf32(x - __uint_as_float(hi));
+}
+
+// d += a b in 3xTF32: the two small products first, then the large one, into one fp32
+// accumulator (CUTLASS's OpMultiplyAddFastF32 order)
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&a_hi)[4],
+                                           const unsigned (&a_lo)[4], const unsigned (&b_hi)[2],
+                                           const unsigned (&b_lo)[2]) {
+  pcdiff_ptx::mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  pcdiff_ptx::mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  pcdiff_ptx::mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// Rows [r0, r0 + BK) of a panel into a [BK, LD] tile by cp.async; rows past n are zeros.
+// `vec`: the panel's base and row stride are 16-byte aligned (16-byte copies), else 4-byte ones.
+template <int D>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, long long stride,
+                                           int r0, int n, bool vec) {
+  constexpr int LD = Cfg<D>::LD;
+  constexpr int CH = D / 4;  // 16-byte chunks a row
+  if (vec) {
+    for (int c = threadIdx.x; c < BK * CH; c += THREADS) {
+      const int r = c / CH, col = (c % CH) * 4;
+      const bool ok = r0 + r < n;
+      const float* from = src + (long long)(ok ? r0 + r : 0) * stride + col;
+      pcdiff_ptx::cp_async_16(dst + r * LD + col, from, ok ? 16 : 0);
+    }
+  } else {
+    for (int c = threadIdx.x; c < BK * D; c += THREADS) {
+      const int r = c / D, col = c % D;
+      const bool ok = r0 + r < n;
+      const float* from = src + (long long)(ok ? r0 + r : 0) * stride + col;
+      pcdiff_ptx::cp_async_4(dst + r * LD + col, from, ok ? 4 : 0);
+    }
   }
 }
 
-// S = Q K^T for the staged tiles into s ([64, LD_S]): thread (ty, tx) forms rows
-// 8ty..8ty+7 at columns tx + 16j, FMA in the order of d.
+// One key tile through one warp's 16 query rows: S = Q K^T in 3xTF32, the online softmax on
+// S's accumulators, O = O alpha + P V in 3xTF32. Lane (g, t) = (lane / 4, lane % 4) holds rows
+// g and g + 8 at columns 8j + 2t, +1 of every n8 tile j (index e of s[j], o[j]: row + 8 (e / 2),
+// column + e % 2). m: the running row max; l: the running row sum of this lane's columns. q:
+// the warp's 16 rows of Q's hi parts (lo at q + TILE); kv: the staged tile, K and then V at
+// kv + TILE, split into TF32 parts as the fragments are read.
 template <int D>
-__device__ __forceinline__ void scores(float* s, const float* sq, const float* sk) {
+__device__ __forceinline__ void tile_fp32(float (&o)[D / 8][4], float (&m)[2], float (&l)[2],
+                                          const float* q, const float* kv, int k0, int nk) {
   using C = Cfg<D>;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[8][4] = {};
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[8], b[4];
+  constexpr int LD = C::LD;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+
+  float s[NT][4];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = sq[(ty * 8 + i) * C::LD + d];
+  for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  // k8 step kc outer, so each step's products go to the eight score tiles in turn. Q's A
+  // fragment by one ldmatrix.x4 of 32-bit rows a part (matrix i: rows 8 (i % 2), +7 at dims
+  // 8kc + 4 (i / 2), +3); K's B fragments b0 = K[8j + g][8kc + t], b1 = K[8j + g][8kc + t + 4]
+  // of two tiles j = 2jp, 2jp + 1 by another (matrix i: keys 16jp + 8 (i / 2), +7 at dims
+  // 8kc + 4 (i % 2), +3)
+  const float* q_lane = q + ((lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 4 * (lane >> 4);
+  const float* k_lane = kv + ((lane & 7) + 8 * (lane >> 4)) * LD + 4 * ((lane >> 3) & 1);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = sk[(tx + 16 * j) * C::LD + d];
+  for (int kc = 0; kc < D / 8; ++kc) {
+    unsigned a_hi[4], a_lo[4];
+    pcdiff_ptx::ldmatrix_x4(a_hi, q_lane + 8 * kc);
+    pcdiff_ptx::ldmatrix_x4(a_lo, q_lane + C::TILE + 8 * kc);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int jp = 0; jp < NT / 2; ++jp) {
+      unsigned raw[4];
+      pcdiff_ptx::ldmatrix_x4(raw, k_lane + 16 * jp * LD + 8 * kc);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int h = 0; h < 2; ++h) {
+        unsigned b_hi[2], b_lo[2];
+        split_tf32(__uint_as_float(raw[2 * h]), b_hi[0], b_lo[0]);
+        split_tf32(__uint_as_float(raw[2 * h + 1]), b_hi[1], b_lo[1]);
+        mma_3xtf32(s[2 * jp + h], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
   }
+
+  if (k0 + BK > nk) {  // the panel's last tile, partial: keys past nk weigh nothing
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[(ty * 8 + i) * C::LD_S + tx + 16 * j] = acc[i][j];
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + 2 * t + (e & 1) >= nk) s[j][e] = -INFINITY;
+  }
+
+  float off[2], alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float x = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) x = fmaxf(x, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    const float m_new = fmaxf(m[r], x);  // finite: every tile holds at least one key
+    alpha[r] = pcdiff_ptx::ex2((m[r] - m_new) * pcdiff_attn::LOG2E);  // 0 on the first tile
+    off[r] = m_new * pcdiff_attn::LOG2E;
+    m[r] = m_new;
+  }
+  float psum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = pcdiff_ptx::ex2(fmaf(s[j][e], pcdiff_attn::LOG2E, -off[e >> 1]));
+      psum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + psum[r];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e >> 1];
+
+  // PV, k8 step j over keys 8j..8j+7 taken in the order 8j + 2c (column c of A) and
+  // 8j + 2c + 1 (column c + 4): P's A fragment is then S's accumulator (c0, c2, c1, c3) with
+  // no shuffle, and V's B fragment reads keys 8j + 2t and 8j + 2t + 1 at dim 8n + g
+  const int v_lane = C::TILE + 2 * t * LD + g;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    unsigned a_hi[4], a_lo[4];
+    split_tf32(s[j][0], a_hi[0], a_lo[0]);
+    split_tf32(s[j][2], a_hi[1], a_lo[1]);
+    split_tf32(s[j][1], a_hi[2], a_lo[2]);
+    split_tf32(s[j][3], a_hi[3], a_lo[3]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int i0 = v_lane + 8 * j * LD + 8 * n;
+      unsigned b_hi[2], b_lo[2];
+      split_tf32(kv[i0], b_hi[0], b_lo[0]);
+      split_tf32(kv[i0 + LD], b_hi[1], b_lo[1]);
+      mma_3xtf32(o[n], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, D == 32 ? 3 : 2)
 head_split_attention_fp32_kernel(const Args a) {
   using C = Cfg<D>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sq = reinterpret_cast<float*>(smem);
-  float* sk = reinterpret_cast<float*>(smem + C::TILE_BYTES);
-  float* sv = reinterpret_cast<float*>(smem + 2 * C::TILE_BYTES);
-  float* ss = reinterpret_cast<float*>(smem + 3 * C::TILE_BYTES);
-
-  const int bh = blockIdx.x;
-  const int b = bh / a.heads, h = bh % a.heads;
-  const int q0 = blockIdx.y * BQ;
+  float* ring = reinterpret_cast<float*>(smem);
+  const int b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
   const int nq = a.nq, nk = a.nk;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * BQ + 16 * (threadIdx.x / 32);  // the warp's first query row
+  const bool active = row0 < nq;  // a warp whose 16 rows all lie past nq skips the arithmetic
   const float* qb = static_cast<const float*>(a.q) + b * a.q_b + h * a.q_h;
   const float* kb = static_cast<const float*>(a.k) + b * a.k_b + h * a.k_h;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_b + h * a.v_h;
   float* ob = static_cast<float*>(a.o) + b * a.o_b + h * a.o_h;
+  const std::uintptr_t kv =
+      reinterpret_cast<std::uintptr_t>(kb) | reinterpret_cast<std::uintptr_t>(vb);
+  const bool vec = kv % 16 == 0 && a.k_n % 4 == 0 && a.v_n % 4 == 0;  // 16-byte copies
 
-  load_tile<D, C::LD>(sq, qb, a.q_n, q0, nq);
-  __syncthreads();
-
-  // The lane pair (2r, 2r + 1) of warp w owns row 16w + r of the tile: each lane half its
-  // columns, both lanes the row's statistics.
-  const int r_own = warp * 16 + lane / 2;
-  const int half = lane % 2;
-  const float* srow = ss + r_own * C::LD_S + half * (BK / 2);
-
-  // sweep 1: the row max and the row sum of exp(S - max), online
-  float m_run = -INFINITY, l_run = 0.f;
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();  // every thread is done with the previous tile
-    load_tile<D, C::LD>(sk, kb, a.k_n, k0, nk);
-    __syncthreads();
-    scores<D>(ss, sq, sk);
-    __syncthreads();
-    const int cbase = k0 + half * (BK / 2);
-    float tmax = -INFINITY;
-    for (int c = 0; c < BK / 2; ++c)
-      if (cbase + c < nk) tmax = fmaxf(tmax, srow[c]);
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m_run, tmax);  // finite: every tile holds at least one key
-    float psum = 0.f;
-    for (int c = 0; c < BK / 2; ++c)
-      if (cbase + c < nk) psum += expf(srow[c] - m_new);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l_run = l_run * expf(m_run - m_new) + psum;  // the factor is 0 on the first tile
-    m_run = m_new;
+  const int ntiles = (nk + BK - 1) / BK;
+  auto load = [&](int tile, int stage) {
+    float* sk = ring + stage * 2 * C::TILE;
+    stage_tile<D>(sk, kb, a.k_n, tile * BK, nk, vec);
+    stage_tile<D>(sk + C::TILE, vb, a.v_n, tile * BK, nk, vec);
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < ntiles) load(st, st);
+    pcdiff_ptx::cp_async_commit();  // one group a tile, empty past the end: uniform counts
   }
 
-  // sweep 2: the normalised weights times V
-  constexpr int OJ = D / 8;  // thread (ty, tx) owns rows 4ty..4ty+3, columns tx + 8j
-  float o32[4][OJ] = {};
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();
-    load_tile<D, C::LD>(sk, kb, a.k_n, k0, nk);
-    load_tile<D, C::LD>(sv, vb, a.v_n, k0, nk);
-    __syncthreads();
-    scores<D>(ss, sq, sk);
-    __syncthreads();
-    const int cbase = k0 + half * (BK / 2);
-    float* prow = ss + r_own * C::LD_S + half * (BK / 2);  // in place: fp32 weights
-    for (int c = 0; c < BK / 2; ++c)
-      prow[c] = cbase + c < nk ? expf(prow[c] - m_run) / l_run : 0.f;
-    __syncthreads();
-    const int tx = tid % 8, ty = tid / 8;
-    for (int c = 0; c < BK; ++c) {
-      float p[4], vv[OJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ss[(ty * 4 + i) * C::LD_S + c];
-#pragma unroll
-      for (int j = 0; j < OJ; ++j) vv[j] = sv[c * C::LD + tx + 8 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < OJ; ++j) o32[i][j] = fmaf(p[i], vv[j], o32[i][j]);
-    }
+  // Q's 64 rows split once into their TF32 parts (rows past nq zeros), hi and lo in two
+  // tiles past the ring's stages; the first tile's barrier makes them visible
+  float* q_parts = ring + STAGES * 2 * C::TILE;
+  for (int c = threadIdx.x; c < BQ * D; c += THREADS) {
+    const int r = c / D, col = c % D, row = blockIdx.y * BQ + r;
+    unsigned hi, lo;
+    split_tf32(row < nq ? qb[(long long)row * a.q_n + col] : 0.f, hi, lo);
+    q_parts[r * C::LD + col] = __uint_as_float(hi);
+    q_parts[C::TILE + r * C::LD + col] = __uint_as_float(lo);
   }
 
-  const int tx = tid % 8, ty = tid / 8;
+  const float* q_warp = q_parts + 16 * (threadIdx.x / 32) * C::LD;
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row < nq) {
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  int stage = 0;
+  for (int k0 = 0; k0 < nk; k0 += BK) {
+    pcdiff_ptx::cp_async_wait<STAGES - 2>();  // this thread's copies of this tile have landed
+    __syncthreads();  // everyone's, and every warp is done with the last tile
+    const int next = k0 / BK + STAGES - 1;
+    if (next < ntiles) load(next, stage == 0 ? STAGES - 1 : stage - 1);
+    pcdiff_ptx::cp_async_commit();
+    if (active) tile_fp32<D>(o, m, l, q_warp, ring + stage * 2 * C::TILE, k0, nk);
+    stage = stage == STAGES - 1 ? 0 : stage + 1;
+  }
+  pcdiff_ptx::cp_async_wait<0>();
+
+  // one division by the fp32 row sum an output element; rows past nq are not stored
 #pragma unroll
-      for (int j = 0; j < OJ; ++j) ob[(long long)row * a.o_n + tx + 8 * j] = o32[i][j];
+  for (int r = 0; r < 2; ++r) {
+    const float l_row = pcdiff_attn::row_sum(l[r]);
+    const int row = row0 + g + 8 * r;
+    if (active && row < nq) {
+      float* dst = ob + (long long)row * a.o_n + 2 * t;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        dst[8 * n] = o[n][2 * r] / l_row;
+        dst[8 * n + 1] = o[n][2 * r + 1] / l_row;
+      }
     }
   }
 }

@@ -18,12 +18,19 @@
 //   K6a: one warp per row, 8 rows per block of 256 threads; each lane loads 4 consecutive
 //        elements at a time (16-byte loads in fp32), sums x and x^2 in one pass, and reads
 //        its elements again (from L1) for the affine and the store.
-//   K6b: (a) one block of 256 threads per 64 rows: a warp per row computes the statistics,
-//        the two row means and dx; the block then walks its rows again column by column
-//        (a thread per column, coalesced) for its partial dscale and dbias, written to an
-//        fp32 [2, blocks, C] scratch. (b) a fixed-order sum of the partials over the blocks.
-//        No atomics, so the result is the same from run to run. The TPU kernel returns
-//        per-cell partials too, summed outside it.
+//   K6b: (a) a grid sized to the card (the wrapper's `blocks`: a fixed number a SM, fewer
+//        for few rows), block b taking a contiguous range of rows that its 8 warps walk in
+//        turn, a warp per row. Where C <= 256 (every site of the port's configurations) the
+//        warp reads its row of x and g once into registers (lane l holds columns 4l + 128i,
+//        +3) and from them forms the statistics, the two row means and dx; each lane adds
+//        g xhat and g into its own columns' dscale and dbias over the warp's rows, and the
+//        block's warps add theirs in shared memory in warp order into the block's partial,
+//        written to an fp32 [2, blocks, C] scratch. Wider rows take one block per 64 rows that
+//        reads x and g again from L1/L2 and walks its rows column by column for the partials.
+//        (b) the partials summed over the blocks in a fixed order: a block per 32 outputs,
+//        warp w summing blocks w, w + 8, ... and warp 0 the eight warps' sums in order. No
+//        atomics, so the result is the same from run to run. The TPU kernel returns per-cell
+//        partials too, summed outside it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,7 +44,8 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int BWD_ROWS = 64;  // rows per block of K6b's pass (a)
+constexpr int BWD_ROWS = 64;  // rows per block of K6b's first pass past REG_C
+constexpr int REG_C = 256;    // the widest row K6b's first pass holds in registers
 constexpr int MAX_C = 4096;
 
 enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
@@ -124,7 +132,100 @@ layer_norm_fwd(const TX* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// K6b pass (a). part: [2, blocks, C] fp32 (dscale partials, then dbias partials).
+// K6b pass (a) for C <= REG_C: block b takes rows [b chunk, (b + 1) chunk), chunk =
+// ceil(rows / gridDim.x), its warps rows r0 + warp, r0 + warp + 8, ...; a lane holds the row's
+// columns 4 lane + 128 i, +3 for i < C / 128 <= NC in registers. part: [2, gridDim.x, C] fp32
+// (dscale partials, then dbias partials).
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(THREADS, 2)
+layer_norm_bwd_regs(const TX* __restrict__ x, const float* __restrict__ scale,
+                    const TG* __restrict__ g, TX* __restrict__ dx, float* __restrict__ part,
+                    int rows, int C, float eps) {
+  constexpr int NC = REG_C / 128;
+  __shared__ __align__(16) float red[WARPS * 2 * REG_C];  // each warp's dscale, dbias
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nc = C / 128;
+  const int chunk = (rows + gridDim.x - 1) / gridDim.x;
+  const int r0 = blockIdx.x * chunk, r1 = min(rows, r0 + chunk);
+  const float inv_c = __fdiv_rn(1.f, (float)C);
+  float sc[NC][4], ds[NC][4], db[NC][4];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (i < nc) load4(scale + 4 * lane + 128 * i, sc[i]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ds[i][e] = db[i][e] = 0.f;
+  }
+  for (int r = r0 + warp; r < r1; r += WARPS) {
+    const size_t off = (size_t)r * C + 4 * lane;
+    float xv[NC][4], gv[NC][4];
+    float s = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (i < nc) {
+        load4(x + off + 128 * i, xv[i]);
+        load4(g + off + 128 * i, gv[i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s += xv[i][e];
+          s2 += xv[i][e] * xv[i][e];
+        }
+      }
+    }
+    s = warp_sum(s);
+    s2 = warp_sum(s2);
+    const float mean = __fmul_rn(s, inv_c);
+    const float var = fmaxf(0.f, __fsub_rn(__fmul_rn(s2, inv_c), __fmul_rn(mean, mean)));
+    const float rstd = rsqrtf(__fadd_rn(var, eps));
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (i < nc) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          xv[i][e] = __fmul_rn(__fsub_rn(xv[i][e], mean), rstd);  // xhat from here on
+          const float gs = __fmul_rn(gv[i][e], sc[i][e]);
+          m1 += gs;
+          m2 += __fmul_rn(gs, xv[i][e]);
+        }
+      }
+    }
+    m1 = __fmul_rn(warp_sum(m1), inv_c);
+    m2 = __fmul_rn(warp_sum(m2), inv_c);
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      if (i < nc) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float gs = __fmul_rn(gv[i][e], sc[i][e]);
+          d[e] = __fmul_rn(rstd, __fsub_rn(__fsub_rn(gs, m1), __fmul_rn(xv[i][e], m2)));
+          ds[i][e] += __fmul_rn(gv[i][e], xv[i][e]);
+          db[i][e] += gv[i][e];
+        }
+        store4(dx + off + 128 * i, d);
+      }
+    }
+  }
+  // the block's partial: each warp's sums into shared memory, then added in warp order
+  float* mine = red + (size_t)warp * 2 * C + 4 * lane;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (i < nc) {
+      store4(mine + 128 * i, ds[i]);
+      store4(mine + C + 128 * i, db[i]);
+    }
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < 2 * C; j += THREADS) {
+    float v = red[j];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += red[(size_t)w * 2 * C + j];
+    const int which = j / C;
+    part[((size_t)which * gridDim.x + blockIdx.x) * C + (j - which * C)] = v;
+  }
+}
+
+// K6b pass (a) past REG_C: one block per BWD_ROWS rows. part: [2, blocks, C] fp32.
 template <typename TX, typename TG>
 __global__ void __launch_bounds__(THREADS)
 layer_norm_bwd_rows(const TX* __restrict__ x, const float* __restrict__ scale,
@@ -181,17 +282,31 @@ layer_norm_bwd_rows(const TX* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// K6b pass (b): out[j] = sum over k of part[k][j], in order; j < n = 2 C (dscale, dbias).
+// K6b pass (b): out[j] = sum over k of part[k][j] in the order of k, j < 2 C (dscale, then
+// dbias): a block per 32 consecutive j, warp w summing k = w, w + 8, ... in order, then the
+// eight warps' sums added in warp order.
 __global__ void __launch_bounds__(THREADS)
 layer_norm_bwd_sum(const float* __restrict__ part, int blocks, int C, float* __restrict__ dscale,
                    float* __restrict__ dbias) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= 2 * C) return;
-  const int which = j / C, c = j - which * C;
+  __shared__ float wsum[WARPS][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int j = blockIdx.x * 32 + lane;
+  const bool ok = j < 2 * C;
+  const int which = ok ? j / C : 0, c = ok ? j - which * C : 0;
   const float* p = part + (size_t)which * blocks * C + c;
   float s = 0.f;
-  for (int k = 0; k < blocks; ++k) s += p[(size_t)k * C];
-  (which ? dbias : dscale)[c] = s;
+  if (ok) {
+#pragma unroll 4
+    for (int k = warp; k < blocks; k += WARPS) s += p[(size_t)k * C];
+  }
+  wsum[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && ok) {
+    float t = wsum[0][lane];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) t += wsum[w][lane];
+    (which ? dbias : dscale)[c] = t;
+  }
 }
 
 template <typename TX, typename TY>
@@ -215,27 +330,38 @@ int fwd_out(int y_dtype, const void* x, const void* scale, const void* bias, voi
 }
 
 template <typename TX, typename TG>
-int launch_bwd(const void* x, const void* scale, const void* g, void* dx, void* dscale,
-               void* dbias, void* part, int rows, int c, float eps, cudaStream_t s) {
-  const int blocks = (rows + BWD_ROWS - 1) / BWD_ROWS;
-  float* p = static_cast<float*>(part);
-  layer_norm_bwd_rows<TX, TG><<<blocks, THREADS, 0, s>>>(
-      static_cast<const TX*>(x), static_cast<const float*>(scale), static_cast<const TG*>(g),
-      static_cast<TX*>(dx), p, rows, c, eps);
+int launch_bwd(const void* x_, const void* scale_, const void* g_, void* dx_, void* dscale,
+               void* dbias, void* part_, int blocks, int rows, int c, float eps,
+               cudaStream_t s) {
+  const TX* x = static_cast<const TX*>(x_);
+  const float* scale = static_cast<const float*>(scale_);
+  const TG* g = static_cast<const TG*>(g_);
+  TX* dx = static_cast<TX*>(dx_);
+  float* part = static_cast<float*>(part_);
+  if (c <= REG_C) {
+    layer_norm_bwd_regs<TX, TG><<<blocks, THREADS, 0, s>>>(x, scale, g, dx, part, rows, c, eps);
+  } else {
+    if (blocks != (rows + BWD_ROWS - 1) / BWD_ROWS) return (int)cudaErrorInvalidValue;
+    layer_norm_bwd_rows<TX, TG><<<blocks, THREADS, 0, s>>>(x, scale, g, dx, part, rows, c, eps);
+  }
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  layer_norm_bwd_sum<<<(2 * c + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-      p, blocks, c, static_cast<float*>(dscale), static_cast<float*>(dbias));
+  layer_norm_bwd_sum<<<(2 * c + 31) / 32, THREADS, 0, s>>>(
+      part, blocks, c, static_cast<float*>(dscale), static_cast<float*>(dbias));
   return (int)cudaGetLastError();
 }
 
 template <typename TX>
 int bwd_grad(int g_dtype, const void* x, const void* scale, const void* g, void* dx,
-             void* dscale, void* dbias, void* part, int rows, int c, float eps, cudaStream_t s) {
+             void* dscale, void* dbias, void* part, int blocks, int rows, int c, float eps,
+             cudaStream_t s) {
   switch (g_dtype) {
-    case F32: return launch_bwd<TX, float>(x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
-    case BF16: return launch_bwd<TX, bf16>(x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
-    case F16: return launch_bwd<TX, __half>(x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
+    case F32:
+      return launch_bwd<TX, float>(x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps, s);
+    case BF16:
+      return launch_bwd<TX, bf16>(x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps, s);
+    case F16:
+      return launch_bwd<TX, __half>(x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -260,19 +386,25 @@ extern "C" int pcdiff_layer_norm_fwd(const void* x, const void* scale, const voi
   return (int)cudaErrorInvalidValue;
 }
 
-// x, scale, g, dx (x's dtype), dscale, dbias (fp32 [c]), part (fp32 scratch of
-// 2 ceil(rows / 64) c elements): device pointers. x_dtype / g_dtype as above. Same shape
+// x, scale, g, dx (x's dtype), dscale, dbias (fp32 [c]), part (fp32 scratch of 2 blocks c
+// elements): device pointers. blocks: pass (a)'s grid, at least 1 (the wrapper sizes it to the
+// card); past c = 256 it must be ceil(rows / 64). x_dtype / g_dtype as above. Same shape
 // requirements as the forward. Returns the cudaError_t of the launches (0 on success);
 // launches on `stream`, no sync.
 extern "C" int pcdiff_layer_norm_bwd(const void* x, const void* scale, const void* g, void* dx,
-                                     void* dscale, void* dbias, void* part, int rows, int c,
-                                     float eps, int x_dtype, int g_dtype, void* stream) {
-  if (bad_shape(rows, c)) return (int)cudaErrorInvalidValue;
+                                     void* dscale, void* dbias, void* part, int blocks, int rows,
+                                     int c, float eps, int x_dtype, int g_dtype, void* stream) {
+  if (bad_shape(rows, c) || blocks <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (x_dtype) {
-    case F32: return bwd_grad<float>(g_dtype, x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
-    case BF16: return bwd_grad<bf16>(g_dtype, x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
-    case F16: return bwd_grad<__half>(g_dtype, x, scale, g, dx, dscale, dbias, part, rows, c, eps, s);
+    case F32:
+      return bwd_grad<float>(g_dtype, x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps,
+                             s);
+    case BF16:
+      return bwd_grad<bf16>(g_dtype, x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps, s);
+    case F16:
+      return bwd_grad<__half>(g_dtype, x, scale, g, dx, dscale, dbias, part, blocks, rows, c, eps,
+                              s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,12 +1,14 @@
 // PTX primitives of the port's Hopper (sm_90a) kernels: cp.async copies into shared memory,
-// ldmatrix fragment loads, the m16n8k16 bf16 tensor-core product with fp32 accumulation,
-// ex2.approx and bf16 packing, the warpgroup product wgmma (A from shared memory or from
-// registers) with its fences and shared-memory descriptors, the pieces of a
-// warp-specialised ring (mbarriers, named barriers, the tensor memory accelerator's 2-D
-// copy) and of a thread-block cluster (its barrier, a peer block's shared memory). Shared by
+// ldmatrix fragment loads, the m16n8k16 bf16 and m16n8k8 TF32 tensor-core products with fp32
+// accumulation and the rounding to TF32, ex2.approx and bf16 packing, the warpgroup product
+// wgmma (A from shared memory or from registers) with its fences and shared-memory
+// descriptors, the pieces of a warp-specialised ring (mbarriers, named barriers, the tensor
+// memory accelerator's 2-D copy) and of a thread-block cluster (its barrier, a peer block's
+// shared memory). Shared by
 // the attention loop (attention_fwd.cuh), the LayerNorm -> projections loop
 // (ln_dense_fwd.cuh), the whole-MLP kernel (ln_mlp.cu) and the LayerNorm -> projections
-// backward (ln_dense_bwd.cu).
+// backward (ln_dense_bwd.cu); the TF32 pieces by the head-split attention's fp32 kernel
+// (attention.cu).
 
 #pragma once
 
@@ -29,6 +31,12 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, int src_
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+// 4 bytes from global to shared memory (through L1: cp.async takes 16 bytes only with .cg);
+// src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
@@ -48,6 +56,32 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
                                          unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 4 fp32 matrices (rows of 16 bytes) by ldmatrix's b16 form: lanes 8i..8i+7 give
+// the row addresses of matrix i, and lane l receives word l % 4 of row l / 4 of each, in r[i].
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const float* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)) : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero) in fp32's layout,
+// the 13 low bits zero: the bits cvt.rna.tf32.f32 gives a finite x, by two integer
+// operations (ptxas expands that instruction into four, with a guard for inf and NaN).
+__device__ __forceinline__ unsigned round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// d += a b for one m16n8k8 TF32 tile, fp32 accumulation: a the 16 x 8 A fragment (a[0]: row
+// g, column t; a[1]: row g + 8; a[2]: row g, column t + 4; a[3]: row g + 8, column t + 4;
+// g = lane / 4, t = lane % 4), (b0, b1) the 8 x 8 B fragment (rows t and t + 4, column g).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -25,6 +25,7 @@ Backends (:func:`set_layernorm_backend`), as the JAX package's ``auto | pallas |
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -42,7 +43,13 @@ __all__ = [
 _BACKEND = "auto"  # auto | kernel | plain
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_C = 4096
-_BWD_ROWS = 64  # rows per block of K6b's first pass (csrc/layer_norm.cu BWD_ROWS)
+# K6b's first pass (csrc/layer_norm.cu): rows of at most REG_C columns are held in registers by
+# a grid sized to the card, _BWD_PER_SM blocks an SM of _BWD_WARPS warps, a row a warp at a
+# time; wider rows take one block per BWD_ROWS rows
+_REG_C = 256
+_BWD_WARPS = 8
+_BWD_PER_SM = 2
+_BWD_ROWS = 64
 
 launches = 0  # K6a launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # K6b launches, likewise
@@ -112,8 +119,10 @@ def _kernel_fn(name):
     if fn is None:
         fn = getattr(_native.library("layer_norm"), name)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
-        n_ptrs = 4 if name == "pcdiff_layer_norm_fwd" else 7
-        fn.argtypes = [vp] * n_ptrs + [i32, i32, ctypes.c_float, i32, i32, vp]
+        if name == "pcdiff_layer_norm_fwd":
+            fn.argtypes = [vp] * 4 + [i32, i32, ctypes.c_float, i32, i32, vp]
+        else:  # the backward also takes its first pass's grid
+            fn.argtypes = [vp] * 7 + [i32, i32, i32, ctypes.c_float, i32, i32, vp]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -150,6 +159,20 @@ def _launch(x, scale, bias, eps, out_dtype):
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _bwd_blocks(rows: int, c: int, sms: int) -> int:
+    """K6b's first-pass grid, and so the number of partials its second pass sums: past
+    ``_REG_C`` one block per ``_BWD_ROWS`` rows; else ``_BWD_PER_SM`` blocks an SM of the
+    ``sms``, and no more blocks than there are rows for their warps."""
+    if c > _REG_C:
+        return -(-rows // _BWD_ROWS)
+    return min(-(-rows // _BWD_WARPS), _BWD_PER_SM * sms)
+
+
 def _launch_bwd(x, scale, g, eps):
     """K6b: (dx in x's dtype, dscale fp32, dbias fp32)."""
     global bwd_launches
@@ -159,12 +182,13 @@ def _launch_bwd(x, scale, g, eps):
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dscale, dbias = torch.empty(c, **f32), torch.empty(c, **f32)
-    part = torch.empty(2, -(-rows // _BWD_ROWS), c, **f32)
+    blocks = _bwd_blocks(rows, c, _sms(x.device.index))
+    part = torch.empty(2, blocks, c, **f32)
     with torch.cuda.device(x.device):
         err = _kernel_fn("pcdiff_layer_norm_bwd")(
             x.data_ptr(), scale.data_ptr(), g.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), part.data_ptr(), rows, c, float(eps), _DTYPE_CODES[x.dtype],
-            _DTYPE_CODES[g.dtype], _native.stream(x.device))
+            dbias.data_ptr(), part.data_ptr(), blocks, rows, c, float(eps),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[g.dtype], _native.stream(x.device))
     if err:
         raise RuntimeError(f"layer_norm_bwd kernel launch failed: cudaError_t {err}")
     bwd_launches += 1

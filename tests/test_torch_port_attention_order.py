@@ -10,11 +10,18 @@ bf16. K1's bf16 exp mode rounds bf16(s - m) and its exp2 to bf16 against the fin
 as the TPU kernel's exp panel does: in one pass where ``fa._exp_plan`` splits the panel's
 keys over the warps of a block (each warp's slice max, the final max from them, partial sums
 and outputs per slice added in warp order), else after a first sweep for the max alone (K7's
-first sweep without the sum). This file repeats those
+first sweep without the sum). K7's fp32 kernel makes one pass instead (in fp32 the rounding of
+the normalised weights does nothing): the online max and sum of K1, each product in 3xTF32
+(operands split into TF32 parts hi = rna(x), lo = rna(x - hi); per 8-deep step lo hi, then
+hi lo, then hi hi into the fp32 accumulator) and one division by the row sum at the end.
+This file repeats those
 orders in torch and holds them to ``_torch_attention_mh(..., mxu_dtype=bf16[, exp_dtype=
 bf16])`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the kernels
-to on the card (``ATTN_ATOL``, ``K7_TOL[bf16]``), with bf16 inputs at 8 heads of 32,
-two rows, the backbone's z, read and write sites and the ragged point-cloud encoder. With
+to on the card (``ATTN_ATOL``, ``K7_TOL``), with bf16 inputs (K7 fp32: fp32 inputs) at 8 heads of 32,
+two rows, the backbone's z, read and write sites and the ragged point-cloud encoder; it
+shows that K7's fp32 tolerance fails an order that drops one of 3xTF32's correction terms
+(in S or in PV) or all of them (1xTF32), and holds the fp32 order to the TPU kernel in
+interpret mode at a ragged head-dim-64 shape. With
 fp32 inputs it also holds the bf16 exp mode's order to the mean limit ``chip_smoke.py`` adds
 there (``ATTN_EXP_MEAN``), and shows that the limit fails an order that drops either of the
 mode's two roundings, or K1's default mode. The emulation lives here only; nothing on the
@@ -23,10 +30,13 @@ port's path calls it.
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
+from pcdiff.ops import flash_attention as jfa
 from pcdiff_torch.ops import flash_attention as fa
 
 torch.set_num_threads(2)
@@ -35,6 +45,7 @@ HEADS, D, ROWS, TILE = 8, 32, 2, 64
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)
 ATTN_ATOL = 2e-2  # chip_smoke.py: K1 against its plain version
 K7_TOL_BF16 = 2e-2  # chip_smoke.py: K7 against its plain version, bf16
+K7_TOL_FP32 = 1e-4  # chip_smoke.py: K7 against its plain version, fp32
 ATTN_EXP_MEAN = 1e-5  # chip_smoke.py: K1's bf16 exp mode, mean abs error with fp32 inputs
 SHAPES = {  # (Nq, Nk): the backbone's sites and the point-cloud encoder (ragged both ways)
     "z": (643, 643),
@@ -89,6 +100,50 @@ def _emulate_k7(q, k, v):
         s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
         o = o + _exp2_fma(s, c).bfloat16().float() @ v[..., k0:k0 + TILE, :]
     return o
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest, ties away from zero,
+    the 13 low mantissa bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+TERMS = ("lo hi", "hi lo", "hi hi")  # 3xTF32's products, in the kernel's order
+
+
+def _mm_3xtf32(a, b, terms=TERMS):
+    """a @ b as the kernel's m16n8k8 TF32 products take it: each operand split into
+    hi = rna(x) and lo = rna(x - hi), and per 8-deep step of the contraction the products in
+    ``terms`` (lo hi, hi lo, hi hi) added to the fp32 accumulator in that order."""
+    parts = {}
+    for name, t in (("a", a), ("b", b)):
+        hi = _tf32(t)
+        parts[name] = {"hi": hi, "lo": _tf32(t - hi)}
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], 8):
+        for term in terms:
+            x, y = term.split()
+            acc = acc + parts["a"][x][..., k0:k0 + 8] @ parts["b"][y][..., k0:k0 + 8, :]
+    return acc
+
+
+def _emulate_k7_fp32(q, k, v, s_terms=TERMS, pv_terms=TERMS):
+    """K7's fp32 order: one pass over 64-key tiles, S = Q K^T in 3xTF32, the online row max
+    and sum (exp2 of log2e-scaled scores, O rescaled by exp2 of the max's change), O += P V
+    in 3xTF32 with P unnormalised, and O divided by the fp32 row sum once at the end.
+    ``s_terms`` / ``pv_terms`` short of ``TERMS`` drop products (a faulty kernel)."""
+    m = torch.full(q.shape[:-1] + (1,), -math.inf)
+    l = torch.zeros_like(m)
+    o = torch.zeros(q.shape)
+    for k0 in range(0, k.shape[-2], TILE):
+        s = _mm_3xtf32(q, k[..., k0:k0 + TILE, :].transpose(-1, -2), s_terms)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * LOG2E)
+        p = _exp2_fma(s, m_new * LOG2E)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + _mm_3xtf32(p, v[..., k0:k0 + TILE, :], pv_terms)
+        m = m_new
+    return o / l
 
 
 def _emulate_k1_bf16_exp(q, k, v, round_t=True, round_p=True):
@@ -159,12 +214,24 @@ K1_ORDERS = {"K1": _emulate_k1, "K1 bf16 exp": _emulate_k1_bf16_exp,
              "K1 bf16 exp one pass": _emulate_k1_bf16_exp_one_pass}
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K7", "K1 bf16 exp", "K1 bf16 exp one pass"])
+def _heads(*ts):
+    """[B, N, H*D] -> the [B, H, N, D] views K7 takes, in their dtype."""
+    return tuple(t.reshape(ROWS, t.shape[1], HEADS, D).transpose(1, 2) for t in ts)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K7", "K1 bf16 exp", "K1 bf16 exp one pass",
+                                    "K7 fp32"])
 @pytest.mark.parametrize("site", list(SHAPES))
 def test_loop_order_within_card_tolerance(site, kernel):
     nq, nk = SHAPES[site]
-    q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site))
-    if kernel.startswith("K1"):
+    dtype = torch.float32 if kernel == "K7 fp32" else torch.bfloat16
+    q, k, v = _inputs(nq, nk, seed=list(SHAPES).index(site), dtype=dtype)
+    if kernel == "K7 fp32":
+        qs, ks, vs = _heads(q, k, v)
+        ref = fa._torch_attention(qs, ks, vs)
+        got = _emulate_k7_fp32(qs, ks, vs)
+        tol = K7_TOL_FP32
+    elif kernel.startswith("K1"):
         exp = torch.float32 if kernel == "K1" else torch.bfloat16
         emulate = K1_ORDERS[kernel]
         ref = fa._torch_attention_mh(q, k, v, HEADS, mxu_dtype=torch.bfloat16,
@@ -173,13 +240,49 @@ def test_loop_order_within_card_tolerance(site, kernel):
         got = fa._fold(got, q).float()  # the kernel's output in q's dtype, bf16
         tol = ATTN_ATOL
     else:
-        qs, ks, vs = (t.reshape(ROWS, t.shape[1], HEADS, D).transpose(1, 2) for t in (q, k, v))
+        qs, ks, vs = _heads(q, k, v)
         ref = fa._torch_attention(qs, ks, vs).float()
         got = _emulate_k7(*(t.float() for t in (qs, ks, vs))).bfloat16().float()
         tol = K7_TOL_BF16
     assert got.shape == ref.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     assert err <= tol, f"{kernel} {site}: max abs error {err:.3e} > {tol:g}"
+
+
+K7_FP32_FAULTS = {  # name: (S's products, PV's products)
+    "S without lo hi": (TERMS[1:], TERMS),
+    "PV without lo hi": (TERMS, TERMS[1:]),
+    "1xTF32": (TERMS[2:], TERMS[2:]),
+}
+
+
+@pytest.mark.parametrize("fault", list(K7_FP32_FAULTS))
+@pytest.mark.parametrize("site", ["z", "write"])
+def test_k7_fp32_tolerance_tells_a_dropped_term(site, fault):
+    """K7_TOL[fp32] (1e-4) sees 3xTF32 short of a correction term: one S product dropped
+    reads ~1.0e-3 to ~1.2e-3 here, one PV product ~2.1e-4 to ~2.2e-4, 1xTF32 ~2.0e-3 to
+    ~2.1e-3, where the kernel's order reads ~2.6e-6 to ~3.1e-6 at the four sites
+    (test_loop_order_within_card_tolerance)."""
+    nq, nk = SHAPES[site]
+    q, k, v = _heads(*_inputs(nq, nk, seed=list(SHAPES).index(site), dtype=torch.float32))
+    s_terms, pv_terms = K7_FP32_FAULTS[fault]
+    err = (_emulate_k7_fp32(q, k, v, s_terms, pv_terms) - fa._torch_attention(q, k, v))
+    err = err.abs().max().item()
+    assert err > K7_TOL_FP32, f"{fault} {site}: max abs error {err:.3e}"
+
+
+def test_k7_fp32_order_matches_the_tpu_kernel():
+    """The one-pass 3xTF32 order against the TPU kernel in interpret mode, off the main path:
+    head dim 64, ragged query and key counts (not multiples of 16 or 64)."""
+    rng = np.random.default_rng(64)
+    q = rng.standard_normal((2, 2, 37, 64), dtype=np.float32) * (2 / math.sqrt(64))
+    k, v = (rng.standard_normal((2, 2, 53, 64), dtype=np.float32) for _ in range(2))
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfa._pallas_attention(*(jnp.asarray(a) for a in (q, k, v))))
+    got = _emulate_k7_fp32(*(torch.from_numpy(a) for a in (q, k, v))).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    err = np.abs(got - want).max()
+    assert err <= K7_TOL_FP32, f"max abs error {err:.3e}"
 
 
 VARIANTS = {  # name: (the order, whether it is the mode's)

@@ -4,7 +4,8 @@
   then, so an edit to ``csrc/attention_fwd.cuh`` rebuilds the three libraries that include it.
 - The attention sources: K1 (``attention_mh.cu``), K7 (``attention.cu``) and the ladder K8
   (``attention_ladder.cu``) include the one bf16 loop of ``attention_fwd.cuh``; neither K1 nor
-  the ladder has a key loop of its own, and K7's own loops belong to its fp32 kernel alone.
+  the ladder has a key loop of its own, and K7's own loop belongs to its fp32 kernel alone:
+  one pass over the keys on ``ptx.cuh``'s TF32 ``mma.sync`` (3xTF32), with no bf16.
   The backward K2 (``attention_mh_bwd.cu``) is built on the same primitives of ``ptx.cuh``
   (``mma.sync``, ``ldmatrix``, ``cp.async``, ``ex2.approx``), with no WMMA and no atomics.
 - K1's one-pass bf16 exp mode and ``fa._exp_plan`` agree on its warps, the keys a warp holds
@@ -13,6 +14,10 @@
 - The whole-MLP kernel K5 (``ln_mlp.cu``) is built on K3's loop (``ln_dense_fwd.cuh``) and
   ``ptx.cuh``: ``wgmma`` for its bf16 products, K3's FMA stage for its fp32 ones, no WMMA;
   the cuts of its profiling script (``scripts/mlp_cuts.py``) still apply to its source.
+- K7's fp32 path: the cuts and variants of its profiling script (``scripts/k7_cuts.py``) still
+  apply to its source.
+- K6b (``layer_norm.cu``): the wrapper plans its first pass with the kernel's constants, a
+  grid of at most two blocks an SM that gives every warp a row, and no atomics.
 - K4's bf16 path (``ln_dense_bwd.cu``) has no WMMA, atomics or TF32: K3's bf16 block with
   K4's epilogue, and dy and dW on ``ptx.cuh``'s ``wgmma`` with shared-memory operands; the
   cuts of its profiling script (``scripts/ln_bwd_cuts.py``) still apply to its source.
@@ -24,7 +29,7 @@ import re
 import pytest
 
 from pcdiff_torch.ops import _native
-from pcdiff_torch.scripts import exp_cuts, ln_bwd_cuts, mlp_cuts
+from pcdiff_torch.scripts import exp_cuts, k7_cuts, ln_bwd_cuts, mlp_cuts
 
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
@@ -64,12 +69,17 @@ def test_attention_sources_share_one_loop(name):
     if name != "attention":
         assert loops == [], f"{name}.cu has a key loop of its own"
         return
-    # K7 keeps its fp32 FMA loop (two sweeps), and only that: every key loop lies in the
-    # body of the fp32 kernel, which uses no bf16 and no tensor-core instruction
+    # K7 keeps one loop of its own, its fp32 kernel's single pass over the keys, in that
+    # kernel's body; the fp32 path runs on TF32 mma.sync and the rounding to TF32 (3xTF32)
+    # and touches no bf16, while the bf16 kernel stays on the shared loop's NORMALISED mode
     start = text.index("head_split_attention_fp32_kernel(const Args a)")
     end = text.index("\n}\n", start)
-    assert len(loops) == 2 and all(start < i < end for i in loops)
-    assert not re.search(r"bf16|mma|ldmatrix", text[start:end])
+    assert len(loops) == 1 and start < loops[0] < end
+    fp32 = text[text.index("// ---- fp32:"):text.index("int launch_fp32(")]
+    code = re.sub(r"//[^\n]*", "", fp32)
+    assert "mma_tf32(" in code and "round_tf32(" in code
+    assert "bf16" not in fp32
+    assert "attention_block<pcdiff_attn::NORMALISED" in text
 
 
 def test_header_holds_the_bf16_key_loop():
@@ -80,6 +90,10 @@ def test_header_holds_the_bf16_key_loop():
     text += (_native.CSRC_DIR / "ptx.cuh").read_text()
     for op in ("mma.sync.aligned.m16n8k16", "ldmatrix", "cp.async.cg", "ex2.approx"):
         assert op in text, op
+    # and the TF32 product of K7's fp32 kernel, and its rounding to TF32: cvt.rna.tf32.f32's
+    # bits for finite inputs, by two integer operations
+    assert re.search(r"mma\.sync\.aligned\.m16n8k8\.row\.col\.f32\.tf32\.tf32\.f32", text)
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in text
 
 
 def test_attention_backward_builds_on_ptx_primitives():
@@ -194,3 +208,29 @@ def test_exp_cuts_apply_to_the_kernel_source(cut):
     text = exp_cuts.cut_source(cut)  # raises if a substitution no longer matches once
     assert text != (_native.CSRC_DIR / "attention_fwd.cuh").read_text()
     assert "exp_block" in text
+
+
+@pytest.mark.parametrize("cut", list(k7_cuts.CUTS))
+def test_k7_cuts_apply_to_the_kernel_source(cut):
+    text = k7_cuts.cut_source(cut)  # raises if a substitution no longer matches once
+    assert text != (_native.CSRC_DIR / "attention.cu").read_text()
+    assert "head_split_attention_fp32_kernel" in text
+
+
+def test_layer_norm_bwd_plan_matches_the_kernel():
+    """``_bwd_blocks`` plans K6b's first pass with the kernel's constants: rows of at most
+    REG_C columns in registers on a grid sized to the card (at every standalone LayerNorm of
+    the fully fused train step, at most two blocks an SM of 132 and no warp without a row),
+    wider rows one block per BWD_ROWS rows; the passes use no atomics."""
+    from pcdiff_torch.ops import layer_norm as lnorm
+
+    text = (_native.CSRC_DIR / "layer_norm.cu").read_text()
+    for name, want in (("REG_C", lnorm._REG_C), ("BWD_ROWS", lnorm._BWD_ROWS),
+                       ("THREADS", 32 * lnorm._BWD_WARPS)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", text).group(1)) == want, name
+    assert "atomic" not in re.sub(r"//[^\n]*", "", text)
+    for rows in (32, 4096, 8192, 20576, 32768):  # the class/view norms, encoders, z and x
+        blocks = lnorm._bwd_blocks(rows, 256, 132)
+        assert 1 <= blocks <= lnorm._BWD_PER_SM * 132
+        assert blocks * lnorm._BWD_WARPS <= rows  # every warp of the grid has a row
+    assert lnorm._bwd_blocks(1000, 512, 132) == -(-1000 // lnorm._BWD_ROWS)
