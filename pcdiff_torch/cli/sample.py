@@ -44,8 +44,10 @@ def load_params(cfg: Config, model) -> Dict[str, torch.Tensor]:
 
 
 def build_sampler(cfg: Config, bound: BoundTwoStream) -> PointCloudSampler:
-    """The configured one-stage Karras sampler over ``bound``. The port's solvers are
-    ``heun`` and ``heun_reuse``; the others raise NotImplementedError."""
+    """The configured one-stage sampler over ``bound``: any solver of
+    ``sample.sampler`` (``heun_parallel`` with ``sample.parallel_window`` and
+    ``sample.parallel_tol``), or the DDPM ancestral chain when ``sample.use_karras`` is
+    false."""
     s = cfg.sample
     return PointCloudSampler(
         models=[bound], diffusions=[build_diffusion(cfg)],
@@ -54,6 +56,7 @@ def build_sampler(cfg: Config, bound: BoundTwoStream) -> PointCloudSampler:
         use_karras=[s.use_karras], karras_steps=[s.karras_steps],
         sigma_min=[s.sigma_min], sigma_max=[s.sigma_max], s_churn=[s.s_churn],
         sampler=s.sampler,
+        parallel_options=dict(window=s.parallel_window, tol=s.parallel_tol),
         guidance_interval=((s.guidance_interval_lo, s.guidance_interval_hi)
                            if s.guidance_interval_hi > s.guidance_interval_lo else None),
     )

@@ -101,14 +101,13 @@ def build_model(cfg: Config, device="cuda") -> TwoStreamDenoiser:
 
 
 def build_diffusion(cfg: Config):
-    """The configured Gaussian diffusion. The port has the epsilon prediction with the
-    ``fixed_small`` variance and the ``mse`` loss; the other types raise."""
+    """The configured Gaussian diffusion: the schedule, step count, and the mean,
+    variance and loss types of ``diffusion.gaussiandiffusion`` (a learned variance needs
+    ``model.output_channels`` = 6)."""
     g = cfg.diffusion.gaussiandiffusion
-    if (g.model_mean_type, g.model_var_type, g.loss_type) != ("epsilon", "fixed_small", "mse"):
-        raise NotImplementedError(
-            f"diffusion ({g.model_mean_type}, {g.model_var_type}, {g.loss_type}) is not "
-            "ported: the port has (epsilon, fixed_small, mse)")
-    return diffusion_from_betas(cfg.diffusion.schedule, cfg.diffusion.timesteps)
+    return diffusion_from_betas(cfg.diffusion.schedule, cfg.diffusion.timesteps,
+                                model_mean_type=g.model_mean_type,
+                                model_var_type=g.model_var_type, loss_type=g.loss_type)
 
 
 def build_dataset(cfg: Config):
@@ -227,12 +226,14 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
                     if ema is not None:
                         ema_update(ema, model, cfg.train.ema_decay)
                     step_metrics.append(metrics)
-            host = (torch.stack([torch.stack([m["loss"], m["mse"]]) for m in step_metrics])
+            # the kl losses have no mse term; a learned variance adds vb
+            keys = [k for k in ("loss", "mse", "vb") if step_metrics and k in step_metrics[0]]
+            host = (torch.stack([torch.stack([m[k] for k in keys]) for m in step_metrics])
                     .cpu().tolist() if step_metrics else [])
         step_seconds = time.perf_counter() - t0
-        for (loss, mse), m in zip(host, step_metrics):
+        for values, m in zip(host, step_metrics):
             global_step += 1
-            mlog.log({"loss": loss, "mse": mse, "self_conditioned": m["self_conditioned"]},
+            mlog.log(dict(zip(keys, values), self_conditioned=m["self_conditioned"]),
                      step=global_step)
         if last_batch is not None and (epoch + 1) % cfg.train.sample_every == 0:
             _sample_last_batch(cfg, model, diffusion, last_batch, run_dir, epoch + 1, gen)

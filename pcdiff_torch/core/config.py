@@ -141,7 +141,8 @@ class SampleConfig:
     sigma_min: float = 1e-3
     sigma_max: float = 120.0
     s_churn: float = 0.0
-    # ODE solver: heun | heun_reuse (dpm | ancestral | heun_parallel: not ported)
+    # ODE solver: heun | heun_reuse | dpm | ancestral | heun_parallel (one card; its window
+    # and tolerance below)
     sampler: str = "heun"
     parallel_window: int = 8
     parallel_tol: float = 1e-3

@@ -11,7 +11,7 @@ from .attention import (
     set_gelu_impl,
     set_ln_mlp_fusion,
 )
-from .embeddings import build_2d_sincos_position_embedding, timestep_embedding
+from .embeddings import build_2d_sincos_position_embedding, fourier_pe, timestep_embedding
 from .encoders import (
     ClassEmbedding,
     DepthMapEncoder,
@@ -34,6 +34,7 @@ __all__ = [
     "fuse_ln_mlp_enabled",
     "timestep_embedding",
     "build_2d_sincos_position_embedding",
+    "fourier_pe",
     "ClassEmbedding",
     "ViewAngleEmbedding",
     "PartialPointCloudEncoder",

@@ -1,8 +1,8 @@
 """Positional and timestep embeddings.
 
-Counterpart of :mod:`pcdiff.models.embeddings` (the two tables the flagship sampler
-uses). The 2D table is computed in numpy, as the JAX package does, and enters the model
-as a constant.
+Counterpart of :mod:`pcdiff.models.embeddings`: the two tables the flagship uses and
+the Fourier features of XYZ coordinates. The 2D table is computed in numpy, as the JAX
+package does, and enters the model as a constant.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ import math
 import numpy as np
 import torch
 
-__all__ = ["timestep_embedding", "build_2d_sincos_position_embedding"]
+__all__ = ["timestep_embedding", "build_2d_sincos_position_embedding", "fourier_pe"]
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
@@ -48,3 +48,13 @@ def build_2d_sincos_position_embedding(
     pe[:, dim // 2: 3 * dim // 4] = np.sin(y[:, None] * div)
     pe[:, 3 * dim // 4:] = np.cos(y[:, None] * div)
     return pe
+
+
+def fourier_pe(xyz: torch.Tensor, num_freqs: int = 8, scale: float = 0.5) -> torch.Tensor:
+    """Fourier features of XYZ coordinates, [..., 3] -> [..., 3 * 2 * num_freqs]:
+    frequencies 2^k pi / scale, each coordinate's [sin | cos] bands flattened."""
+    freqs = (2.0 ** torch.arange(num_freqs, dtype=torch.float32, device=xyz.device)
+             ) * math.pi / scale
+    enc = xyz[..., None] * freqs  # [..., 3, F]
+    enc = torch.cat([torch.sin(enc), torch.cos(enc)], dim=-1)  # [..., 3, 2F]
+    return enc.reshape(enc.shape[:-2] + (-1,))

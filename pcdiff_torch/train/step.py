@@ -10,7 +10,9 @@ package's default and the one path ported):
   encoded modalities without ``partial_pcd`` unless ``bootstrap_include_partial_pcd``,
   and runs under ``torch.no_grad()``; each of the two forwards draws its own CFG-dropout
   masks;
-- epsilon-MSE plus the chamfer-XYZ term gated by a flag;
+- the diffusion's ``training_losses`` (any mean, variance and loss type; with a learned
+  variance the model's output has twice the data's channels) plus the chamfer-XYZ term
+  gated by a flag;
 - ``backward``, the AdamW update and ``grad_norm``, the global norm of the raw gradients.
 
 :func:`make_device_data_step` takes its batch from a dataset held on the device, by an

@@ -18,8 +18,9 @@ from pcdiff_torch.cli import sample as cli_sample
 from pcdiff_torch.cli import train as cli_train
 from pcdiff_torch.core.checkpoint import export_two_stream_torch_state
 from pcdiff_torch.core.config import load_config
-from pcdiff_torch.data import make_modelnet_fixture
+from pcdiff_torch.data import BatchLoader, ModelNetCompletion, make_modelnet_fixture
 from pcdiff_torch.geometry import read_ply
+from pcdiff_torch.models.wrapper import BoundTwoStream
 from pcdiff_torch.train import make_device_data_step, permute_points
 
 torch.set_num_threads(2)
@@ -117,12 +118,30 @@ def test_sample_and_evaluate(unbroken, fixture, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("sampler", ["heun_parallel", "dpm", "ancestral"])
-def test_unported_samplers_raise(fixture, sampler):
+def test_configured_samplers_run(fixture, sampler):
+    """Each solver beyond heun and heun_reuse, built from the config (heun_parallel with its
+    window and tolerance) and sampled on the CPU, with the denoiser calls it implies."""
     _, data = fixture
-    cfg = _cfg(data, f"sample.sampler={sampler}")
-    model = cli_train.build_model(cfg, "cpu")
-    with pytest.raises(NotImplementedError):
-        cli_sample.build_sampler(cfg, model)
+    cfg = _cfg(data, f"sample.sampler={sampler}", "sample.parallel_window=2",
+               "sample.parallel_tol=0.0")
+    model = cli_train.init_params(cli_train.build_model(cfg, "cpu"), cfg,
+                                  torch.Generator().manual_seed(0))
+    bound = BoundTwoStream(model.eval())
+    sampler_ = cli_sample.build_sampler(cfg, bound)
+    assert sampler_.sampler == sampler
+    assert sampler_.parallel_options == {"window": 2, "tol": 0.0}
+    dataset = ModelNetCompletion(data, split="test")
+    batch = next(iter(BatchLoader(dataset, 2, shuffle=False, seed=0, prefetch=0)))
+    out = sampler_.sample_batch(2, cli_sample.batch_kwargs(batch, "cpu"),
+                                torch.Generator().manual_seed(1))
+    dataset.close()
+    assert out.shape == (2, 64, 3) and torch.isfinite(out).all()
+    steps = cfg.sample.karras_steps
+    calls = {"dpm": 2 * steps, "ancestral": steps,
+             "heun_parallel": 2 * sum(sampler_.parallel_iters)}[sampler]
+    assert bound.calls == calls
+    if sampler == "heun_parallel":
+        assert 1 <= sampler_.parallel_iters[0] <= steps
 
 
 def test_reference_pt_as_initial_weights(fixture, tmp_path):
