@@ -1,7 +1,8 @@
-"""Point-set geometry of the port: distances and F-scores, FPS, PLY IO and the
-``PointCloud`` container."""
+"""Point-set geometry of the port: distances and F-scores, FPS (and the native host
+FPS, :mod:`.fps_native`), PLY IO and the ``PointCloud`` and ``TriMesh`` containers."""
 
 from .fps import farthest_point_sample, fps
+from .mesh import TriMesh
 from .ops import (
     chamfer_distance,
     chamfer_distance_color,
@@ -17,6 +18,7 @@ from .point_cloud import PointCloud
 
 __all__ = [
     "PointCloud",
+    "TriMesh",
     "write_ply",
     "read_ply",
     "square_distance",

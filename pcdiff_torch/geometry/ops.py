@@ -2,10 +2,11 @@
 
 Counterpart of :mod:`pcdiff.geometry.ops`: chamfer distances (the training loss's and the
 evaluation's), F-scores, the batched gather and k nearest neighbours. Pairwise
-distances use the ``|a|^2 + |b|^2 - 2 a.b`` expansion with the product in fp32 and the
-result clamped at 0, as the JAX package's; the product is a plain ``torch.matmul``, as the
-JAX package leaves it to XLA. The nearest-neighbour minima are ``amin``, whose gradient,
-like ``jnp.min``'s, is shared evenly between tied entries.
+distances use the ``|a|^2 + |b|^2 - 2 a.b`` expansion with the product in fp32 (in fp64
+for fp64 inputs, where the JAX package stays in fp32) and the result clamped at 0; the
+product is a plain ``torch.matmul``, as the JAX package leaves it to XLA. The
+nearest-neighbour minima are ``amin``, whose gradient, like ``jnp.min``'s, is shared
+evenly between tied entries.
 """
 
 from __future__ import annotations
@@ -27,8 +28,10 @@ __all__ = [
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Pairwise squared L2 distances: src [B, N, C], dst [B, M, C] -> [B, N, M] fp32."""
-    src, dst = src.float(), dst.float()
+    """Pairwise squared L2 distances: src [B, N, C], dst [B, M, C] -> [B, N, M], in fp64
+    where either input is fp64 (the extractor's fp64 mode) and in fp32 otherwise."""
+    dtype = torch.float64 if torch.float64 in (src.dtype, dst.dtype) else torch.float32
+    src, dst = src.to(dtype), dst.to(dtype)
     cross = torch.matmul(src, dst.transpose(-1, -2))
     s2 = (src * src).sum(dim=-1, keepdim=True)  # [B, N, 1]
     d2 = (dst * dst).sum(dim=-1, keepdim=True)  # [B, M, 1]

@@ -1,7 +1,7 @@
-"""The port imports no JAX (nor the JAX package, PyYAML or h5py), and importing it (or
-running it on the CPU: a sampler run, a forward in the fully fused configuration, a forward
-with the head-split attention hooks, a train step and the attention ladder's entry point)
-builds nothing.
+"""The port imports no JAX (nor the JAX package, PyYAML, h5py or matplotlib), and importing
+it (or running it on the CPU: a sampler run, a forward in the fully fused configuration, a
+forward with the head-split attention hooks, a train step and the attention ladder's entry
+point) builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -38,6 +38,10 @@ import pcdiff_torch.geometry.fps, pcdiff_torch.geometry.ply, pcdiff_torch.geomet
 import pcdiff_torch.utils, pcdiff_torch.utils.io, pcdiff_torch.evals, pcdiff_torch.evals.metrics
 import pcdiff_torch.cli, pcdiff_torch.cli.train, pcdiff_torch.cli.sample
 import pcdiff_torch.cli.evaluate, pcdiff_torch.scripts.quality
+import pcdiff_torch.evals.fid_is, pcdiff_torch.evals.npz_stream, pcdiff_torch.evals.pointnet2
+import pcdiff_torch.evals.feature_extractor, pcdiff_torch.cli.evaluate_pfid
+import pcdiff_torch.cli.evaluate_pis, pcdiff_torch.cli.downsample
+import pcdiff_torch.geometry.fps_native, pcdiff_torch.geometry.mesh, pcdiff_torch.utils.plotting
 from pcdiff_torch.ops import _native, flash_attention as fa, layer_norm as ln, ln_dense as ld
 from pcdiff_torch.ops import attn_ladder as al, ln_mlp as lm
 
@@ -93,7 +97,8 @@ batch = {"target": np.random.default_rng(0).uniform(-0.5, 0.5, (2, 16, 3)).astyp
 assert torch.isfinite(step(state, batch, g, True)["loss"])
 
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "pcdiff", "yaml", "h5py"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "pcdiff", "yaml", "h5py",
+                                    "matplotlib"))
 assert not bad, bad
 assert _native._libs == {} and _native.build_seconds == {}, "a kernel was built"
 assert fa.launches == 0 and ld.launches == 0
