@@ -14,7 +14,13 @@ to one; only the leaves change:
 Both the unrolled ``block_i`` layout and the stacked ``blocks/block`` layout of
 ``scan_blocks=True`` are accepted; the stacked one is unstacked in numpy. A reference
 torch checkpoint reaches the port through
-:func:`pcdiff.core.checkpoint.import_two_stream_torch_state` and then this function.
+:func:`pcdiff.core.checkpoint.import_two_stream_torch_state` and then this function. The
+Point-E family's trees carry across the same way: the denoisers, the perceiver and the SDF
+model (``backbone/resblock_i``, ``clip_embed_ln``, ...) and CLIP (``visual/block_i``, the
+patch conv without a bias, the raw ``class_embedding``, ``proj``, ``text_projection`` and
+the 0-d ``logit_scale``); the port's own importers of the reference's ``state_dict`` files
+are :mod:`pcdiff_torch.core.point_e_import` and
+:func:`pcdiff_torch.models.clip.import_clip_torch_state`.
 :func:`flax_from_params` is the inverse, for parameters or for gradients.
 """
 

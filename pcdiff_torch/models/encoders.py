@@ -57,13 +57,16 @@ class PatchConv(nn.Module):
     ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
 
     def __init__(self, in_channels: int, out_channels: int, patch: int,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None, use_bias: bool = True):
         super().__init__()
         self.patch = patch
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, patch, patch, device=device))
-        self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_channels, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         # flax kaiming_normal: truncated normal (+-2 sd) with variance 2 / fan_in
@@ -71,7 +74,8 @@ class PatchConv(nn.Module):
         std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
         nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
                               generator=generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] % self.patch or x.shape[2] % self.patch:
@@ -82,7 +86,7 @@ class PatchConv(nn.Module):
         patches = (x.to(self.dtype).reshape(b, h // p, p, w // p, p, cin)
                    .permute(0, 1, 3, 5, 2, 4).reshape(b, h // p, w // p, cin * p * p))
         weight = self.weight.to(self.dtype).reshape(self.weight.shape[0], cin * p * p)
-        return F.linear(patches, weight, self.bias.to(self.dtype))
+        return F.linear(patches, weight, None if self.bias is None else self.bias.to(self.dtype))
 
 
 class ClassEmbedding(nn.Module):

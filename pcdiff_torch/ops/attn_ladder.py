@@ -73,7 +73,7 @@ def _kernel_fn():
 
 def _launch(q, k, v, num_heads: int, rung: str):
     global launches
-    fa._check(q, k, v, num_heads)
+    fa._check(q, k, v, num_heads, (_HEAD_DIM,))
     if q.dtype != torch.bfloat16:
         raise ValueError(f"the ladder kernel takes bf16 inputs, got {q.dtype}")
     if rung not in RUNGS:
@@ -95,6 +95,6 @@ def _launch(q, k, v, num_heads: int, rung: str):
 
 def ladder(q, k, v, num_heads: int, rung: str):
     """One rung of the ladder on ``[B, N, H*D]`` inputs (q pre-scaled); bf16 output."""
-    if fa._use_kernel(q, num_heads):
+    if fa._on_card(q) and fa._mh_domain(q, num_heads, (_HEAD_DIM,)):
         return _launch(q, k, v, num_heads, rung)
     return _torch_ladder(q, k, v, num_heads, rung)

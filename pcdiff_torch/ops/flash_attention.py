@@ -29,8 +29,10 @@ block (every panel of the sampler and the train step), else in two sweeps; the b
 (K2) ignores the switch, as the JAX backward does.
 
 Each kernel has a domain, a pure check of the shapes and dtypes it is built for
-(:func:`_k1_domain`: head dim 32; :func:`_k7_domain`: head dim 32 or 64; both within
-their grids' limits). A CUDA tensor outside it takes the plain version, as the JAX package
+(:func:`_k1_domain`: head dim 32 or 64; :func:`_k2_domain`: head dim 32;
+:func:`_k7_domain`: head dim 32 or 64; each within its grid's limits). A CUDA tensor
+outside it takes the plain version (the backward at head dim 64: no path of the port
+trains a model with it), as the JAX package
 sends such shapes to XLA: K1's plain version, or under the bf16 exp switch
 :func:`_torch_attention_mh_xla`, the XLA twin's numerics (the weights normalised before PV).
 Nothing is caught: a kernel that fails to build or launch raises, and ``_launch`` still
@@ -68,7 +70,9 @@ __all__ = [
 
 _BACKEND = "kernel"  # kernel | plain
 _SOFTMAX_DTYPE = "float32"  # float32 | bfloat16: the forward's exponentials (K1)
-_HEAD_DIM = 32  # the kernel's head dim (the flagship's 256 / 8)
+_K1_HEAD_DIMS = (32, 64)  # K1's head dims: the flagship's 256 / 8, and Point-E's and CLIP's
+_K2_HEAD_DIM = 32  # K2's head dim (the flagship's)
+_EXP_HEAD_DIM = 32  # the head dim of K1's one-pass exp mode
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # backward kernel launches, likewise
@@ -189,13 +193,14 @@ def _torch_attention_mh_bwd(q, k, v, g, num_heads: int, mxu_dtype=torch.bfloat16
     return _fold(dq, q), _fold(dk, k), _fold(dv, v)
 
 
-def _exp_plan(nk: int):
+def _exp_plan(nk: int, head_dim: int = _EXP_HEAD_DIM):
     """K1's plan for a panel of ``nk`` keys under the bf16 exp switch: ``(splits, slice)``,
     row groups of ``splits`` warps of ``slice`` keys (a multiple of 16, at most
     ``_EXP_SLICE``; the last warp takes the rest, and none is empty) that cover the panel in
     one pass: the fewest warps whose slices hold the keys (fewer warps a row trade fewer
-    maxes and partials); or None past ``_EXP_MAX_KEYS``, the two-sweep loop."""
-    if nk > _EXP_MAX_KEYS:
+    maxes and partials); or None past ``_EXP_MAX_KEYS`` or at another head dim than
+    ``_EXP_HEAD_DIM`` (the one pass is built at D = 32 only), the two-sweep loop."""
+    if nk > _EXP_MAX_KEYS or head_dim != _EXP_HEAD_DIM:
         return None
     want = -(-nk // _EXP_SLICE)
     slice_ = 16 * -(-nk // (16 * want))
@@ -212,7 +217,7 @@ def _kernel_fn():
     return _fn
 
 
-def _check(q, k, v, num_heads: int) -> None:
+def _check(q, k, v, num_heads: int, head_dims=_K1_HEAD_DIMS) -> None:
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q, k, v must be [B, N, H*D]")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32, torch.bfloat16):
@@ -226,8 +231,8 @@ def _check(q, k, v, num_heads: int) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != hd:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if hd % num_heads or hd // num_heads != _HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {_HEAD_DIM}, got {hd}/{num_heads}")
+    if num_heads <= 0 or hd % num_heads or hd // num_heads not in head_dims:
+        raise ValueError(f"the kernel takes head dims {head_dims}, got {hd}/{num_heads}")
     if b == 0 or nq == 0 or k.shape[1] == 0:
         raise ValueError("empty attention")
     if b > _GRID_YZ:
@@ -238,14 +243,14 @@ def _launch(q, k, v, num_heads: int):
     global launches
     _check(q, k, v, num_heads)
     b, nq, hd = q.shape
-    nk = k.shape[1]
+    nk, d = k.shape[1], hd // num_heads
     bf16_exp = _SOFTMAX_DTYPE == "bfloat16"
-    splits, slice_ = (_exp_plan(nk) or (0, 0)) if bf16_exp else (0, 0)
+    splits, slice_ = (_exp_plan(nk, d) or (0, 0)) if bf16_exp else (0, 0)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, nq, nk, num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
+            b, nq, nk, num_heads, d, int(q.dtype == torch.bfloat16),
             int(bf16_exp), splits, slice_, _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh kernel launch failed: cudaError_t {err}")
@@ -265,7 +270,7 @@ def _bwd_kernel_fn():
 
 def _launch_bwd(q, k, v, g, num_heads: int):
     global bwd_launches
-    _check(q, k, v, num_heads)
+    _check(q, k, v, num_heads, (_K2_HEAD_DIM,))
     if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device \
             or not g.is_contiguous():
         raise ValueError(f"the output gradient must be a contiguous {q.dtype} tensor of "
@@ -281,7 +286,7 @@ def _launch_bwd(q, k, v, g, num_heads: int):
         err = _bwd_kernel_fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            b, nq, k.shape[1], num_heads, _HEAD_DIM, int(q.dtype == torch.bfloat16),
+            b, nq, k.shape[1], num_heads, _K2_HEAD_DIM, int(q.dtype == torch.bfloat16),
             _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh_bwd kernel launch failed: cudaError_t {err}")
@@ -303,17 +308,31 @@ def _on_card(q) -> bool:
     return q.device.type == "cuda" and _BACKEND == "kernel"
 
 
-def _k1_domain(q, num_heads: int) -> bool:
-    """K1's and K2's domain, checked before any launch: [B, N, H*D] fp32 or bf16 queries
-    with head dim 32 (the flagship's 256 / 8) and a batch that fits the grid's z extent."""
+def _mh_domain(q, num_heads: int, head_dims) -> bool:
     hd = q.shape[-1]
     return (q.dim() == 3 and q.dtype in (torch.float32, torch.bfloat16) and q.numel() > 0
-            and num_heads > 0 and hd % num_heads == 0 and hd // num_heads == _HEAD_DIM
+            and num_heads > 0 and hd % num_heads == 0 and hd // num_heads in head_dims
             and q.shape[0] <= _GRID_YZ)
+
+
+def _k1_domain(q, num_heads: int) -> bool:
+    """K1's domain, checked before any launch: [B, N, H*D] fp32 or bf16 queries with head
+    dim 32 (the flagship's 256 / 8) or 64 (Point-E's and CLIP's) and a batch that fits the
+    grid's z extent."""
+    return _mh_domain(q, num_heads, _K1_HEAD_DIMS)
+
+
+def _k2_domain(q, num_heads: int) -> bool:
+    """K2's domain, checked before any launch: K1's at head dim 32 only."""
+    return _mh_domain(q, num_heads, (_K2_HEAD_DIM,))
 
 
 def _use_kernel(q, num_heads: int) -> bool:
     return _on_card(q) and _k1_domain(q, num_heads)
+
+
+def _use_bwd_kernel(q, num_heads: int) -> bool:
+    return _on_card(q) and _k2_domain(q, num_heads)
 
 
 def _forward_mh(q, k, v, num_heads: int):
@@ -340,7 +359,7 @@ class _FusedAttentionMH(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
         g = g.to(q.dtype).contiguous()
-        if _use_kernel(q, ctx.num_heads):
+        if _use_bwd_kernel(q, ctx.num_heads):
             dq, dk, dv = _launch_bwd(q, k, v, g, ctx.num_heads)
         else:
             dq, dk, dv = _torch_attention_mh_bwd(q, k, v, g, ctx.num_heads,

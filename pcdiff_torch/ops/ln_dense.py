@@ -31,11 +31,13 @@ the forward made for the same parameter version, every product on ``wgmma``, dy 
 registers through the LayerNorm's backward, bound as much by the bytes of x, g and dx as by
 the products.
 
-Both kernels have one domain (:func:`_in_domain`: fp32 or bf16, 0 < C <= 256 with
-C % 32 == 0, fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), a pure check made
-before any launch. A CUDA tensor outside it takes the plain versions, as the JAX package's
-``use_ln_dense`` sends such shapes to XLA; nothing is caught, and ``_launch`` still refuses
-a shape outside it.
+Each kernel has a domain, a pure check made before any launch: fp32 or bf16, C % 32 == 0,
+fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0, and 0 < C <= 1024 for the forward
+(:func:`_in_domain`; past C = 256 its wide kernel, which streams the normalised rows) or
+0 < C <= 256 for the backward (:func:`_bwd_in_domain`: no path of the port trains a model of
+wider rows). A CUDA tensor outside a domain takes that function's plain version, as the JAX
+package's ``use_ln_dense`` sends such shapes to XLA; nothing is caught, and ``_launch`` /
+``_launch_bwd`` still refuse a shape outside their own.
 """
 
 from __future__ import annotations
@@ -54,13 +56,15 @@ __all__ = [
     "set_lndense_backend",
     "lndense_backend",
     "launches",
+    "width_launches",
     "bwd_launches",
 ]
 
 _BACKEND = "kernel"  # kernel | plain
 _ACT_CODES = {None: 0, "gelu": 1, "gelu_tanh": 2, "quick_gelu": 3}
 _DTYPES = (torch.float32, torch.bfloat16)
-_MAX_C = 256
+_MAX_C = 1024  # the forward's widest rows (ViT-L/14's 1024); past 256 its wide kernel
+_MAX_C_BWD = 256  # the backward's (the flagship's)
 _TILE_F = 64
 _MAX_ROWS = 2**31 - 1  # the C interface's int rows
 # a block's LayerNorm prologue counted in output tiles of work (128 x 128: a bf16 tile is a
@@ -70,6 +74,7 @@ _LN_TILES = {torch.bfloat16: 0.5, torch.float32: 0.25}
 _W_BF16 = WeakIdKeyDictionary()
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
+width_launches: dict = {}  # the forward's launches by C, likewise (clear() resets it)
 bwd_launches = 0  # backward kernel launches, likewise
 _fn = None
 _tiling_fn = None
@@ -296,7 +301,7 @@ def _check_param(t, shape, device, what):
         raise ValueError(f"{what} must have shape {shape}, got {tuple(t.shape)}")
 
 
-def _check(x, scale, bias, weights, biases, out_dtype, acts):
+def _check(x, scale, bias, weights, biases, out_dtype, acts, max_c=_MAX_C):
     n = len(weights)
     if not 1 <= n <= 3 or len(biases) != n or len(acts) != n:
         raise ValueError("1 to 3 projections, with one bias and one act each")
@@ -308,8 +313,8 @@ def _check(x, scale, bias, weights, biases, out_dtype, acts):
         raise ValueError(f"out_dtype must be fp32 or bf16, got {out_dtype}")
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
-    if c % 32 or not 0 < c <= _MAX_C or not 0 < rows <= _MAX_ROWS:
-        raise ValueError(f"the kernel takes 0 < C <= {_MAX_C} with C % 32 == 0 and 0 < rows "
+    if c % 32 or not 0 < c <= max_c or not 0 < rows <= _MAX_ROWS:
+        raise ValueError(f"the kernel takes 0 < C <= {max_c} with C % 32 == 0 and 0 < rows "
                          f"<= {_MAX_ROWS}, got x {tuple(x.shape)}")
     if any(a not in _ACT_CODES for a in acts):
         raise ValueError(f"unknown activation in {acts!r}")
@@ -356,6 +361,7 @@ def _launch(x, scale, bias, weights, biases, eps, out_dtype, acts, groups=None):
     if err:
         raise RuntimeError(f"ln_dense kernel launch failed: cudaError_t {err}")
     launches += 1
+    width_launches[c] = width_launches.get(c, 0) + 1
     return outs
 
 
@@ -505,7 +511,7 @@ def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
     """K4 on the card: its fp32 path for fp32 outputs (the train step's), its bf16 path for
     bf16 ones. One count a call, whatever its launches."""
     global bwd_launches
-    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts)
+    rows, c = _check(x, scale, bias, weights, biases, out_dtype, acts, _MAX_C_BWD)
     for i, (w, g) in enumerate(zip(weights, gs)):
         if g.dtype != out_dtype or not g.is_contiguous() or g.numel() != rows * w.shape[0]:
             raise ValueError(f"gradient {i} must be a contiguous {out_dtype} [..., "
@@ -516,13 +522,13 @@ def _launch_bwd(x, scale, bias, weights, biases, gs, eps, out_dtype, acts):
     return out
 
 
-def _in_domain(x, weights, out_dtype) -> bool:
-    """K3's and K4's domain, checked before any launch: fp32 or bf16 ``x [..., C]`` and
-    output, 0 < C <= 256 with C % 32 == 0, 0 < rows < 2^31, and 1 to 3 weights ``[F, C]``
-    with F % 64 == 0."""
+def _in_domain(x, weights, out_dtype, max_c: int = _MAX_C) -> bool:
+    """K3's domain, checked before any launch: fp32 or bf16 ``x [..., C]`` and output,
+    0 < C <= ``max_c`` (1024) with C % 32 == 0, 0 < rows < 2^31, and 1 to 3 weights
+    ``[F, C]`` with F % 64 == 0."""
     c = x.shape[-1] if x.dim() else 0
     return (x.dim() >= 2 and x.dtype in _DTYPES and out_dtype in _DTYPES and x.numel() > 0
-            and 0 < c <= _MAX_C and c % 32 == 0 and x.numel() // c <= _MAX_ROWS
+            and 0 < c <= max_c and c % 32 == 0 and x.numel() // c <= _MAX_ROWS
             and 1 <= len(weights) <= 3
             and all(w.dim() == 2 and w.shape[0] > 0 and w.shape[0] % _TILE_F == 0
                     for w in weights))
@@ -536,8 +542,17 @@ def _on_card(x) -> bool:
     return x.device.type == "cuda" and _BACKEND == "kernel"
 
 
+def _bwd_in_domain(x, weights, out_dtype) -> bool:
+    """K4's domain: K3's at 0 < C <= 256."""
+    return _in_domain(x, weights, out_dtype, _MAX_C_BWD)
+
+
 def _use_kernel(x, weights, out_dtype) -> bool:
     return _on_card(x) and _in_domain(x, weights, out_dtype)
+
+
+def _use_bwd_kernel(x, weights, out_dtype) -> bool:
+    return _on_card(x) and _bwd_in_domain(x, weights, out_dtype)
 
 
 def _forward(x, scale, bias, weights, biases, eps, out_dtype, acts):
@@ -566,7 +581,7 @@ class _FusedLnDenses(torch.autograd.Function):
         weights, present = rest[:n], iter(rest[n:])
         biases = [next(present) if hb else None for hb in ctx.has_bias]
         gs = [g.to(ctx.out_dtype).contiguous() for g in gs]
-        if _use_kernel(x, weights, ctx.out_dtype):
+        if _use_bwd_kernel(x, weights, ctx.out_dtype):
             dx, dscale, dbias, dws, dbs = _launch_bwd(
                 x, scale, bias, weights, biases, gs, ctx.eps, ctx.out_dtype, ctx.acts)
         else:

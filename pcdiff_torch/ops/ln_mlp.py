@@ -75,10 +75,12 @@ def _kernel_fn():
 
 
 def _in_domain(x, w1, w2, out_dtype) -> bool:
-    """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` (fp32 or bf16,
-    0 < C <= 256 with C % 32 == 0, F % 64 == 0), and 0 < O <= 256 with O % 32 == 0."""
+    """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` at K5's own
+    widths (fp32 or bf16, 0 < C <= 256 with C % 32 == 0, F % 64 == 0), and 0 < O <= 256
+    with O % 32 == 0."""
     o = w2.shape[0]
-    return ld._in_domain(x, [w1], out_dtype) and 0 < o <= _MAX_O and o % 32 == 0
+    return (ld._in_domain(x, [w1], out_dtype, _MAX_C) and 0 < o <= _MAX_O
+            and o % 32 == 0)
 
 
 def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
@@ -146,7 +148,7 @@ class _FusedLnMlp(torch.autograd.Function):
         x, scale, bias, w1, b1, w2, b2 = ctx.saved_tensors
         eps, out_dtype, acts = ctx.eps, ctx.out_dtype, [ctx.act]
         g = g.to(out_dtype).contiguous()
-        kernel = ld._use_kernel(x, [w1], out_dtype)
+        kernel = ld._use_bwd_kernel(x, [w1], out_dtype)  # K3's recompute and K4, or neither
         fwd = ld._launch if kernel else ld._torch_ln_denses
         (a,) = fwd(x, scale, bias, [w1], [b1], eps, out_dtype, acts)  # the recompute
         dw2, db2, g_a = _torch_ln_mlp_fc2_bwd(a, g, w2, out_dtype)

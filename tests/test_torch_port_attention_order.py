@@ -18,7 +18,8 @@ This file repeats those
 orders in torch and holds them to ``_torch_attention_mh(..., mxu_dtype=bf16[, exp_dtype=
 bf16])`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the kernels
 to on the card (``ATTN_ATOL``, ``K7_TOL``), with bf16 inputs (K7 fp32: fp32 inputs) at 8 heads of 32,
-two rows, the backbone's z, read and write sites and the ragged point-cloud encoder; it
+two rows, the backbone's z, read and write sites and the ragged point-cloud encoder, and K1's
+two orders at head dim 64 at the Point-E path's vision, base40M and textvec panels; it
 shows that K7's fp32 tolerance fails an order that drops one of 3xTF32's correction terms
 (in S or in PV) or all of them (1xTF32), and holds the fp32 order to the TPU kernel in
 interpret mode at a ragged head-dim-64 shape. With
@@ -247,6 +248,31 @@ def test_loop_order_within_card_tolerance(site, kernel):
     assert got.shape == ref.shape and torch.isfinite(got).all()
     err = (got - ref).abs().max().item()
     assert err <= tol, f"{kernel} {site}: max abs error {err:.3e} > {tol:g}"
+
+
+# K1 at head dim 64, the Point-E path's: (rows, Nq, Nk, heads) of the ViT-L/14 tower, base40M
+# (CFG's 2B rows) and base40M-textvec; the bf16 exp mode takes the two sweeps at D = 64
+SHAPES_D64 = {"vision": (1, 257, 257, 16), "base40M": (2, 1281, 1281, 8),
+              "textvec": (1, 1026, 1026, 8)}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K1 bf16 exp"])
+@pytest.mark.parametrize("site", list(SHAPES_D64))
+def test_k1_order_at_head_dim_64_within_card_tolerance(site, kernel):
+    rows, nq, nk, heads = SHAPES_D64[site]
+    assert fa._exp_plan(nk, 64) is None  # no one-pass plan at D = 64
+    rng = np.random.default_rng(nq + heads)
+    q = torch.from_numpy(rng.standard_normal((rows, nq, heads * 64), dtype=np.float32)
+                         * (2 / math.sqrt(64))).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((rows, nk, heads * 64), dtype=np.float32)
+                             ).bfloat16() for _ in range(2))
+    exp = torch.float32 if kernel == "K1" else torch.bfloat16
+    ref = fa._torch_attention_mh(q, k, v, heads, mxu_dtype=torch.bfloat16,
+                                 exp_dtype=exp).float()
+    split = (t.float().reshape(rows, t.shape[1], heads, 64).transpose(1, 2) for t in (q, k, v))
+    got = fa._fold(K1_ORDERS[kernel](*split), q).float()
+    err = (got - ref).abs().max().item()
+    assert err <= ATTN_ATOL, f"{kernel} {site} (D = 64): max abs error {err:.3e}"
 
 
 K7_FP32_FAULTS = {  # name: (S's products, PV's products)

@@ -1,11 +1,13 @@
 """The port's kernel domains and the dispatch around them, on the CPU (no card, no nvcc).
 
 Each kernel states its domain as a pure check made before any launch:
-``flash_attention._k1_domain`` (K1 and K2: head dim 32, a batch within the grid's z extent),
-``_k7_domain`` (K7: head dim 32 or 64, query tiles within the grid's y extent),
-``ln_dense._in_domain`` (K3 and K4: 0 < C <= 256, C % 32 == 0, fewer than 2^31 rows, 1 to 3
-outputs with F % 64 == 0) and ``ln_mlp._in_domain`` (K5: K3's and 0 < O <= 256,
-O % 32 == 0). A CUDA
+``flash_attention._k1_domain`` (K1: head dim 32 or 64, a batch within the grid's z extent),
+``_k2_domain`` (K2: K1's at head dim 32 only), ``_k7_domain`` (K7: head dim 32 or 64, query
+tiles within the grid's y extent), ``ln_dense._in_domain`` (K3: 0 < C <= 1024, C % 32 == 0,
+fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), ``ln_dense._bwd_in_domain`` (K4: K3's
+at C <= 256) and ``ln_mlp._in_domain`` (K5: K3's at C <= 256 and 0 < O <= 256, O % 32 == 0):
+the forward kernels were widened for the Point-E path, the backward ones were not, so no
+backward is handed a shape it was not built for. A CUDA
 tensor inside the domain launches the kernel; outside it takes the plain version, as the
 JAX package sends such shapes to XLA. Here the card is stood in for by patching the device
 gate (``_on_card``) and each ``_launch`` by a spy, so
@@ -60,24 +62,38 @@ def card(monkeypatch):
     return spies
 
 
-@pytest.mark.parametrize("hd,heads,dtype,want", [
-    (256, 8, torch.float32, True),     # the flagship: 8 heads of 32
-    (128, 4, torch.bfloat16, True),
-    (128, 8, torch.float32, False),    # synthetic_quality.yaml: head dim 16
-    (32, 4, torch.float32, False),     # smoke.yaml: head dim 8
-    (256, 4, torch.float32, False),    # head dim 64
-    (96, 5, torch.float32, False),     # heads do not divide the width
-    (256, 8, torch.float64, False),    # gradcheck's dtype
-])
-def test_k1_domain(hd, heads, dtype, want):
-    assert fa._k1_domain(torch.zeros(2, 5, hd, dtype=dtype), heads) is want
+# (H * D, heads, dtype, in K1's domain, in K2's domain)
+MH_CASES = [
+    (256, 8, torch.float32, True, True),       # the flagship: 8 heads of 32
+    (128, 4, torch.bfloat16, True, True),
+    (128, 8, torch.float32, False, False),     # synthetic_quality.yaml: head dim 16
+    (32, 4, torch.float32, False, False),      # smoke.yaml: head dim 8
+    (256, 4, torch.float32, True, False),      # head dim 64: the SDF model's 4 heads
+    (512, 8, torch.bfloat16, True, False),     # base40M and the upsampler
+    (1024, 16, torch.float32, True, False),    # the ViT-L/14 tower
+    (768, 12, torch.bfloat16, True, False),    # the CLIP text tower's width
+    (1024, 8, torch.float32, False, False),    # head dim 128: just outside
+    (96, 5, torch.float32, False, False),      # heads do not divide the width
+    (256, 8, torch.float64, False, False),     # gradcheck's dtype
+]
+
+
+@pytest.mark.parametrize("hd,heads,dtype,k1,k2", MH_CASES)
+def test_k1_domain(hd, heads, dtype, k1, k2):
+    assert fa._k1_domain(torch.zeros(2, 5, hd, dtype=dtype), heads) is k1
+
+
+@pytest.mark.parametrize("hd,heads,dtype,k1,k2", MH_CASES)
+def test_k2_domain(hd, heads, dtype, k1, k2):
+    assert fa._k2_domain(torch.zeros(2, 5, hd, dtype=dtype), heads) is k2
 
 
 @pytest.mark.parametrize("batch,want", [(65535, True), (65536, False)])
 def test_k1_domain_at_the_grid_edge(batch, want):
     """K1 and K2 put the batch on the grid's z extent (65535 at most)."""
     q = torch.zeros(1, 3, 256).expand(batch, 3, 256)  # no memory behind the batch
-    assert fa._k1_domain(q, 8) is want
+    assert fa._k1_domain(q, 8) is want and fa._k2_domain(q, 8) is want
+    assert fa._k1_domain(q, 4) is want and not fa._k2_domain(q, 4)  # head dim 64
 
 
 @pytest.mark.parametrize("nq,want", [(64 * 65535, True), (64 * 65535 + 1, False)])
@@ -105,26 +121,42 @@ def test_k7_domain(d, transposed, want):
     assert not fa._k7_domain(torch.zeros(2, 3, d, 7).transpose(-1, -2))
 
 
-@pytest.mark.parametrize("c,fs,dtype,out,want", [
-    (256, (256, 256, 256), torch.bfloat16, torch.bfloat16, True),  # the flagship's qkv
-    (256, (1024,), torch.float32, torch.float32, True),
-    (128, (384, 512), torch.bfloat16, torch.bfloat16, True),       # synthetic_quality.yaml
-    (32, (128,), torch.float32, torch.float32, True),              # smoke.yaml
-    (320, (256,), torch.float32, torch.float32, False),            # C > 256
-    (112, (256,), torch.float32, torch.float32, False),            # C % 32
-    (256, (256, 96), torch.float32, torch.float32, False),         # F % 64
-    (256, (64,) * 4, torch.float32, torch.float32, False),         # four outputs
-    (256, (256,), torch.float64, torch.float64, False),            # gradcheck's dtype
-    (256, (256,), torch.float32, torch.float16, False),
-])
-def test_ln_dense_domain(c, fs, dtype, out, want):
+# (C, F_i, x dtype, output dtype, in K3's domain, in K4's domain)
+LN_CASES = [
+    (256, (256, 256, 256), torch.bfloat16, torch.bfloat16, True, True),  # the flagship's qkv
+    (256, (1024,), torch.float32, torch.float32, True, True),
+    (128, (384, 512), torch.bfloat16, torch.bfloat16, True, True),       # synthetic_quality
+    (32, (128,), torch.float32, torch.float32, True, True),              # smoke.yaml
+    (320, (256,), torch.float32, torch.float32, True, False),            # C > 256: K3 wide
+    (512, (512, 512, 512), torch.bfloat16, torch.bfloat16, True, False),  # Point-E qkv
+    (512, (2048,), torch.float32, torch.float32, True, False),           # Point-E fc1
+    (768, (3072,), torch.float32, torch.bfloat16, True, False),          # CLIP text fc1
+    (1024, (1024,) * 3, torch.float32, torch.float32, True, False),      # ViT-L/14 qkv
+    (1056, (256,), torch.float32, torch.float32, False, False),          # C > 1024
+    (112, (256,), torch.float32, torch.float32, False, False),           # C % 32
+    (256, (256, 96), torch.float32, torch.float32, False, False),        # F % 64
+    (256, (64,) * 4, torch.float32, torch.float32, False, False),        # four outputs
+    (256, (256,), torch.float64, torch.float64, False, False),           # gradcheck's dtype
+    (256, (256,), torch.float32, torch.float16, False, False),
+]
+
+
+@pytest.mark.parametrize("c,fs,dtype,out,k3,k4", LN_CASES)
+def test_ln_dense_domain(c, fs, dtype, out, k3, k4):
     x = torch.zeros(2, 3, c, dtype=dtype)
-    assert ld._in_domain(x, [torch.zeros(f, c) for f in fs], out) is want
+    assert ld._in_domain(x, [torch.zeros(f, c) for f in fs], out) is k3
+
+
+@pytest.mark.parametrize("c,fs,dtype,out,k3,k4", LN_CASES)
+def test_ln_dense_bwd_domain(c, fs, dtype, out, k3, k4):
+    x = torch.zeros(2, 3, c, dtype=dtype)
+    assert ld._bwd_in_domain(x, [torch.zeros(f, c) for f in fs], out) is k4
 
 
 @pytest.mark.parametrize("c,f,o,want", [
     (256, 1024, 256, True), (128, 512, 128, True), (256, 1024, 512, False),
     (256, 1024, 48, False), (320, 1024, 256, False), (256, 1000, 256, False),
+    (512, 2048, 512, False),  # Point-E's MLP: K3 takes its fc1, K5 not the whole MLP
 ])
 def test_ln_mlp_domain(c, f, o, want):
     x = torch.zeros(2, 3, c)
@@ -136,12 +168,15 @@ def _attn(b, n, hd, dtype=torch.float32, seed=0):
     return [torch.randn(b, n, hd, generator=g, dtype=dtype).requires_grad_() for _ in range(3)]
 
 
-@pytest.mark.parametrize("hd,heads,kernel", [(256, 8, True), (128, 8, False), (32, 4, False)])
-def test_attention_dispatch_follows_the_domain(card, hd, heads, kernel):
+@pytest.mark.parametrize("hd,heads,calls", [(256, 8, (1, 1)), (128, 8, (0, 0)), (32, 4, (0, 0)),
+                                            (256, 4, (1, 0)), (1024, 16, (1, 0))])
+def test_attention_dispatch_follows_the_domain(card, hd, heads, calls):
+    """(K1, K2) launches of a forward and backward: at head dim 64 the forward launches K1
+    and the backward takes the plain version."""
     q, k, v = _attn(2, 9, hd)
     out = fa.fused_attention_mh(q, k, v, heads)
     out.sum().backward()
-    assert (card["k1"].calls, card["k2"].calls) == ((1, 1) if kernel else (0, 0))
+    assert (card["k1"].calls, card["k2"].calls) == calls
     # the plain version off the domain computes the same function
     torch.testing.assert_close(out, fa._torch_attention_mh(q, k, v, heads, q.dtype),
                                rtol=0, atol=0)
@@ -154,9 +189,12 @@ def test_head_split_dispatch_follows_the_domain(card, d, kernel):
     assert card["k7"].calls == int(kernel)
 
 
-@pytest.mark.parametrize("c,fs,kernel", [(256, (256, 256), True), (128, (512,), True),
-                                         (320, (256,), False), (256, (96,), False)])
-def test_ln_dense_dispatch_follows_the_domain(card, c, fs, kernel):
+@pytest.mark.parametrize("c,fs,calls", [(256, (256, 256), (1, 1)), (128, (512,), (1, 1)),
+                                        (320, (256,), (1, 0)), (512, (1536,), (1, 0)),
+                                        (1056, (256,), (0, 0)), (256, (96,), (0, 0))])
+def test_ln_dense_dispatch_follows_the_domain(card, c, fs, calls):
+    """(K3, K4) calls of a forward and backward: past C = 256 the forward launches K3 and
+    the backward takes the plain version."""
     g = torch.Generator().manual_seed(1)
     x = torch.randn(2, 5, c, generator=g, requires_grad=True)
     ws = [torch.randn(f, c, generator=g, requires_grad=True) for f in fs]
@@ -164,7 +202,7 @@ def test_ln_dense_dispatch_follows_the_domain(card, c, fs, kernel):
     outs = ld.fused_ln_denses(x, torch.ones(c), torch.zeros(c), ws, bs, 1e-5, torch.float32,
                               ["gelu"] * len(fs))
     sum(o.sum() for o in outs).backward()
-    assert (card["k3"].calls, card["k4"].calls) == ((1, 1) if kernel else (0, 0))
+    assert (card["k3"].calls, card["k4"].calls) == calls
 
 
 @pytest.mark.parametrize("o,kernel", [(256, True), (512, False)])
@@ -206,29 +244,37 @@ def test_launch_still_refuses_shapes_outside_the_domain():
         fa._launch_bwd(q, q, q, q, 8)
     with pytest.raises(ValueError, match="head dim"):
         fa._launch_split(*(t.view(2, 5, 8, 16).transpose(1, 2) for t in (q, q, q)))
-    x = torch.zeros(2, 5, 320)
+    with pytest.raises(ValueError, match="head dim"):  # head dim 64: K1's, not K2's
+        fa._launch_bwd(q, q, q, q, 2)
+    x = torch.zeros(2, 5, 1056)
+    with pytest.raises(ValueError, match="C <= 1024"):
+        ld._launch(x, torch.ones(1056), torch.zeros(1056), [torch.zeros(64, 1056)], [None],
+                   1e-5, torch.float32, [None])
+    x = torch.zeros(2, 5, 320)  # K3's, not K4's
     with pytest.raises(ValueError, match="C <= 256"):
-        ld._launch(x, torch.ones(320), torch.zeros(320), [torch.zeros(64, 320)], [None], 1e-5,
-                   torch.float32, [None])
+        ld._launch_bwd(x, torch.ones(320), torch.zeros(320), [torch.zeros(64, 320)], [None],
+                       [torch.zeros(2, 5, 64)], 1e-5, torch.float32, [None])
     with pytest.raises(ValueError, match="O <= 256"):
         lm._launch(q, torch.ones(128), torch.zeros(128), torch.zeros(512, 128),
                    torch.zeros(512), torch.zeros(512, 512), torch.zeros(512), 1e-5,
                    torch.float32, None)
 
 
-@pytest.mark.parametrize("softmax,nk,want", [
-    ("float32", 643, (0, 0, 0)),      # the default mode takes no plan
-    ("bfloat16", 643, (1, 6, 112)),   # one pass: 6 warps of 112 keys, the last 83
-    ("bfloat16", 1025, (1, 9, 128)),  # 9 warps of 128 keys, the last 1
-    ("bfloat16", 4000, (1, 0, 0)),    # past 1152 keys: the two-sweep loop
+@pytest.mark.parametrize("softmax,nk,heads,want", [
+    ("float32", 643, 8, (32, 0, 0, 0)),      # the default mode takes no plan
+    ("bfloat16", 643, 8, (32, 1, 6, 112)),   # one pass: 6 warps of 112 keys, the last 83
+    ("bfloat16", 1025, 8, (32, 1, 9, 128)),  # 9 warps of 128 keys, the last 1
+    ("bfloat16", 4000, 8, (32, 1, 0, 0)),    # past 1152 keys: the two-sweep loop
+    ("float32", 1281, 4, (64, 0, 0, 0)),     # head dim 64
+    ("bfloat16", 257, 4, (64, 1, 0, 0)),     # head dim 64: always the two sweeps
 ])
-def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, want):
-    """K1's launch passes (bf16_exp, splits, slice) from ``fa._exp_plan``; the kernel is
-    stood in for by a function that records them."""
+def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, heads, want):
+    """K1's launch passes (head_dim, bf16_exp, splits, slice) from ``fa._exp_plan``; the
+    kernel is stood in for by a function that records them."""
     seen = []
 
     def kernel(*args):
-        seen.append(args[10:13])
+        seen.append((args[8],) + args[10:13])
         return 0
 
     monkeypatch.setattr(fa, "_kernel_fn", lambda: kernel)
@@ -238,7 +284,7 @@ def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, want)
     q, kv = torch.zeros(1, 3, 256), torch.zeros(1, nk, 256)
     fa.set_attention_softmax_dtype(softmax)
     try:
-        fa._launch(q, kv, kv, 8)
+        fa._launch(q, kv, kv, heads)
     finally:
         fa.set_attention_softmax_dtype("float32")
     assert seen == [want] and fa.launches == 1

@@ -1,7 +1,7 @@
 """The port imports no JAX (nor the JAX package, PyYAML, h5py or matplotlib), and importing
 it (or running it on the CPU: a sampler run, a forward in the fully fused configuration, a
-forward with the head-split attention hooks, a train step and the attention ladder's entry
-point) builds nothing.
+forward with the head-split attention hooks, the Point-E family's models and mesh path, a
+train step and the attention ladder's entry point) builds nothing.
 
 Runs in a fresh interpreter, so nothing the test session imported leaks in. ``nvcc`` is
 made unreachable there: ``PATH`` holds only the interpreter's directory and
@@ -42,6 +42,12 @@ import pcdiff_torch.evals.fid_is, pcdiff_torch.evals.npz_stream, pcdiff_torch.ev
 import pcdiff_torch.evals.feature_extractor, pcdiff_torch.cli.evaluate_pfid
 import pcdiff_torch.cli.evaluate_pis, pcdiff_torch.cli.downsample
 import pcdiff_torch.geometry.fps_native, pcdiff_torch.geometry.mesh, pcdiff_torch.utils.plotting
+import pcdiff_torch.models.point_e, pcdiff_torch.models.configs, pcdiff_torch.models.clip
+import pcdiff_torch.models.perceiver, pcdiff_torch.models.sdf, pcdiff_torch.models.download
+import pcdiff_torch.core.point_e_import, pcdiff_torch.tokenizer, pcdiff_torch.tokenizer.bpe
+import pcdiff_torch.utils.marching, pcdiff_torch.utils.pc_to_mesh, pcdiff_torch.examples
+import pcdiff_torch.examples.image2pointcloud, pcdiff_torch.examples.text2pointcloud
+import pcdiff_torch.examples.pointcloud2mesh
 from pcdiff_torch.ops import _native, flash_attention as fa, layer_norm as ln, ln_dense as ld
 from pcdiff_torch.ops import attn_ladder as al, ln_mlp as lm
 
@@ -83,12 +89,37 @@ with torch.no_grad():
                     class_labels=torch.tensor([1, 2]))
 assert torch.isfinite(eps).all()
 
+import numpy as np
+
+# the Point-E family on the CPU: a tiny grid denoiser, the SDF model's mesh path and both
+# CLIP towers run the plain versions (K1 at head dim 64, K3 past C = 256 included)
+from pcdiff_torch.models.clip import CLIPConfig, CLIPModel
+from pcdiff_torch.models.configs import MODEL_CONFIGS, model_from_config
+from pcdiff_torch.utils.pc_to_mesh import marching_cubes_mesh
+from pcdiff_torch.geometry.point_cloud import PointCloud
+pe = init_params(model_from_config(MODEL_CONFIGS["upsample"], layers=1, width=320, heads=5,
+                                   n_ctx=8, cond_ctx=4, grid_size=2, device="cpu"), g)
+with torch.no_grad():
+    out = pe(torch.zeros(2, 8, 6), torch.tensor([1, 500]), low_res=torch.zeros(2, 4, 6))
+assert out.shape == (2, 8, 12) and torch.isfinite(out).all()
+sdf = init_params(model_from_config(MODEL_CONFIGS["sdf"], encoder_layers=1, decoder_layers=1,
+                                    device="cpu"), g)
+cloud = PointCloud(coords=np.random.default_rng(1).uniform(-0.4, 0.4, (64, 3)).astype(np.float32),
+                   channels={})
+assert len(marching_cubes_mesh(cloud, sdf, batch_size=100, grid_size=6).verts) >= 0
+clip = init_params(CLIPModel(CLIPConfig(embed_dim=16, image_resolution=28, vision_width=64,
+                                        vision_layers=1, vision_patch=14, text_width=64,
+                                        text_layers=1, text_heads=1, vocab_size=32,
+                                        context_length=6), device="cpu"), g)
+with torch.no_grad():
+    assert clip.encode_image(torch.zeros(1, 28, 28, 3)).shape == (1, 16)
+    assert clip.encode_text(torch.tensor([[1, 5, 31, 0, 0, 0]])).shape == (1, 16)
+
 # the ladder's entry point on the CPU runs the plain rungs
 from pcdiff_torch.scripts import attn_profile
 attn_profile.main(["--device", "cpu"])
 
 # a CPU train step goes through the plain backward versions
-import numpy as np
 from pcdiff_torch.train import create_train_state, make_train_step
 state = create_train_state(m, total_steps=10, device="cpu")
 step = make_train_step(m, diffusion_from_betas(), self_conditioning_prob=1.0, device="cpu")
