@@ -33,20 +33,16 @@
 // is carried over only by the one-pass mode, whose panels fit the SM's shared memory.
 // Ragged edges (643, 1025, 257, 255, 127 are multiples of no tile) are masked in the loop.
 //
-// Head dims: 32 (the flagship's 256 / 8) and 64 (Point-E's and CLIP's: 512 / 8, 256 / 4,
-// 1024 / 16, 768 / 12). D = 64 doubles both products' depth and width and keeps one
-// exponential a score, so the tensor cores weigh more there; the block stays 8 warps of 16
-// rows over 64-key tiles, with a 74 KB ring (Layout<64>), the output accumulator doubled in
-// registers. Both of the loop's modes (FULL, and the two-sweep BF16_EXP) are built at both
-// head dims. At D = 64 two blocks share an SM where the inputs are bf16 (128 registers a
-// thread, no spill); fp32 inputs, rounded to bf16 through registers as they are staged,
-// spill at 128 and keep one block an SM. The one-pass exp mode is built at D = 32 only: at
-// D = 64 the resident K and V of EXP_MAX_KEYS keys take 331 KB,
-// and every panel of the Point-E path but the vision tower's 257 keys (1026, 1281, 4096,
-// 4353) lies past that anyway, so the wrapper plans no one-pass launch at D = 64 and those
-// panels take the two sweeps. The loop streams K and V, so a panel's length has no limit
-// here (the TPU kernel holds the whole panel in VMEM): the upsampler's 4353 keys and the
-// SDF decoder's 4096 stay on the kernel.
+// Head dims: 32 (the flagship's 256 / 8) here, and 64 (Point-E's and CLIP's: 512 / 8,
+// 256 / 4, 1024 / 16, 768 / 12) in attention_mh64.cu, K1's own wgmma kernel at D = 64, except
+// under the bf16 exp switch: its two-sweep BF16_EXP mode is built here at both head dims (one
+// block an SM at D = 64 with fp32 inputs, which are rounded to bf16 through registers as they
+// are staged; two with bf16 ones). The one-pass exp mode is built at D = 32 only: at D = 64
+// the resident K and V of EXP_MAX_KEYS keys take 331 KB, and every panel of the Point-E path
+// but the vision tower's 257 keys (1026, 1281, 4096, 4353) lies past that anyway, so the
+// wrapper plans no one-pass launch at D = 64 and those panels take the two sweeps. The loop
+// streams K and V, so a panel's length has no limit here (the TPU kernel holds the whole panel
+// in VMEM).
 
 #include <cstdint>
 #include <initializer_list>
@@ -146,29 +142,34 @@ bool valid_plan(int nk, int splits, int slice) {
 
 }  // namespace
 
-// The loop's modes at head dim HD_, by input dtype.
+// The loop's modes by input dtype: FULL and BF16_EXP at head dim 32, BF16_EXP at 64.
 template <int HD_>
 int launch_loop(const void* q, const void* k, const void* v, void* o, int batch, int nq,
                 int nk, int heads, int is_bf16, int bf16_exp, cudaStream_t s) {
   constexpr int FULL = pcdiff_attn::FULL, EXP = pcdiff_attn::BF16_EXP;
-  if (bf16_exp)
+  if (HD_ == 64 || bf16_exp)
     return is_bf16 ? launch<EXP, HD_, bf16>(q, k, v, o, batch, nq, nk, heads, s)
                    : launch<EXP, HD_, float>(q, k, v, o, batch, nq, nk, heads, s);
-  return is_bf16 ? launch<FULL, HD_, bf16>(q, k, v, o, batch, nq, nk, heads, s)
-                 : launch<FULL, HD_, float>(q, k, v, o, batch, nq, nk, heads, s);
+  if constexpr (HD_ == 32)
+    return is_bf16 ? launch<FULL, HD_, bf16>(q, k, v, o, batch, nq, nk, heads, s)
+                   : launch<FULL, HD_, float>(q, k, v, o, batch, nq, nk, heads, s);
+  else
+    return (int)cudaErrorInvalidValue;
 }
 
 // q, k, v, o: device pointers of one dtype (is_bf16 = 1: bf16, 0: fp32), 16-byte aligned;
-// head_dim is 32 or 64 (the one-pass exp plan is taken at 32 only); bf16_exp = 1 selects the bf16 exp mode, in one pass with `splits` warps of `slice` keys
-// (the wrapper's plan, refused unless it covers nk with no slice empty), or with
-// splits = 0 in two sweeps; the default mode takes splits = slice = 0. Returns the
-// cudaError_t of the launch (0 on success). Launches on `stream` and does not synchronise.
+// head_dim is 32, or 64 with bf16_exp = 1 (the default mode at 64 is attention_mh64.cu's);
+// bf16_exp = 1 selects the bf16 exp mode, in one pass with `splits` warps of `slice` keys
+// (the wrapper's plan, taken at head dim 32 only, refused unless it covers nk with no slice
+// empty), or with splits = 0 in two sweeps; the default mode takes splits = slice = 0.
+// Returns the cudaError_t of the launch (0 on success). Launches on `stream` and does not
+// synchronise.
 extern "C" int pcdiff_attention_mh_fwd(const void* q, const void* k, const void* v, void* o,
                                        int batch, int nq, int nk, int heads, int head_dim,
                                        int is_bf16, int bf16_exp, int splits, int slice,
                                        void* stream) {
-  if ((head_dim != 32 && head_dim != 64) || batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 ||
-      batch > 65535 || heads > 65535)
+  if ((head_dim != 32 && !(head_dim == 64 && bf16_exp)) || batch <= 0 || nq <= 0 || nk <= 0 ||
+      heads <= 0 || batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   if ((splits || slice) && !(bf16_exp && head_dim == D && valid_plan(nk, splits, slice)))
     return (int)cudaErrorInvalidValue;

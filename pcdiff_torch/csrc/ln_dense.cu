@@ -31,27 +31,42 @@
 // C = 256 makes that cheap against its share of the products.
 //
 // Wide rows, 256 < C <= 1024 (Point-E's 512, the CLIP text tower's 768, ViT-L/14's 1024):
-// the resident panel does not fit. At C = 1024 it would take 256 KB in bf16 and 520 KB in
-// fp32, past an SM's 227 KB. Shrinking the row tile with C (64 rows and one warpgroup) would
-// keep it resident in bf16 only, and change the epilogues, the thread layout of the FMA tile
-// and the occupancy of both paths. Instead the block keeps its 128 rows, 8 warps, its W ring,
-// its products and its epilogues, and streams the normalised panel: a statistics pass first
-// (each warp 16 rows: the row's fp32 sum and sum of squares, lane by lane over 8-element
-// chunks and across the warp by shuffles; mean, the fast variance and rsqrtf into shared
-// memory), then beside each W stage the matching k block of LN(x) (128 rows x 64 bf16 in the
-// 128-byte swizzle wgmma reads, or 128 rows x 32 fp32 of pitch 36 for the FMA tile), read from
-// x again (L2), normalised with the stored statistics and rounded to the product dtype. The A
-// ring has the W ring's three stages; the k block of stage s + 2 is written while stage s's
-// wgmma runs (after its FMA stage in fp32), into the slot of stage s - 1, which the stage's
-// barrier has freed. Both rings take 96 KB (bf16) or 102 KB (fp32): two blocks an SM in bf16.
-// The cost: x is read and normalised once a column tile of the block's group, not once, which
-// at these widths is a few percent of the products' work. The numerics are the resident
-// panel's: the same statistics formula (summed in another order), fp32 affine, one rounding.
+// bound by the products at C = 512 (LN(x) W^T, ~2 rows C F operations against ~C + F bytes a
+// row), by the bytes of x, W and the outputs at the towers' few rows. Beside the products,
+// two costs are a block's own: bringing its x rows in and normalising them (once a block, not
+// once a column tile), and streaming W, which every row tile reads again from L2.
+// What the design does about it (ln_denses_wide_kernel, both output dtypes): K5's
+// warp-specialised shape. A producer warpgroup gives its registers to two consumer warpgroups
+// (setmaxnreg 40 / 232); its one thread loads the block's x rows into the resident panel by the
+// TMA, in k blocks of 128-byte rows in the 128-byte swizzle (zero fill past C and the rows),
+// then streams W's boxes of 128 rows x one k block through a 6-slot ring with full and empty
+// mbarriers (tensor maps from cuTensorMapEncodeTiled, tma_host.cuh). The consumers normalise
+// the panel in place, four of a warp's rows at a time (normalising each k block just before
+// the first tile's products of it measured slower: a barrier a k block). The panel holds the most
+// of 128, 64 or 32 rows whose k blocks take at most 128 KB, so with the ring one block an SM.
+// bf16 outputs (the panel in bf16: 128 rows up to C = 512, 64 past it): wgmma from the panel
+// and the W stage, m64n128k16 with each warpgroup 64 of the rows, or at 64 rows m64n64k16 with
+// each warpgroup 64 of the stage's 128 columns; one wgmma group in flight (wgmma_wait<1>), a
+// slot released as soon as its products are done; both warpgroups read every stage, so the
+// exact GELU's epilogue (~45 instructions an element) runs on all eight warps at once
+// (warpgroups on alternate tiles, taking turns on the tensor cores, measured faster at the qkv
+// sites and slower at fc1, where one warpgroup's epilogue outlasts the other's products). fp32
+// outputs (the panel in fp32: 64 rows up to C = 512, 32 past it): 3xTF32 on mma.sync m16n8k8
+// (each operand split into TF32 parts hi = rna(x), lo = rna(x - hi); per 8-deep step lo hi, hi
+// lo and hi hi into the fp32 accumulator, as K7's fp32 path), 8 warps of 16 or 32 rows by 32
+// columns of a tile, the fragments read from the swizzled panel and stage on 32 banks. Both
+// epilogues take the activation's divisions on DivFast, with the DivRn retake for a group of
+// elements with an operand outside the fast path's range. x in the other dtype than the
+// product's (off the path) is normalised from device memory instead.
+// Numerics: the statistics by the fast-variance formula, lane l of a warp summing the row's
+// 8-element chunks l, l + 32, ... in order, then across the warp by an xor butterfly; the
+// fp32 affine, (x - mean) rstd scale + bias; rounded once to the product dtype.
 
 #include <cstdint>
 #include <type_traits>
 
 #include "ln_dense_fwd.cuh"
+#include "tma_host.cuh"
 
 namespace {
 
@@ -67,34 +82,111 @@ ln_denses_kernel(const Args a) {
   pcdiff_ln::ln_dense_block<TX, TO>(a, smem);
 }
 
-// ---- wide rows (MAX_C < C <= MAX_C_WIDE): the normalised panel streamed in k blocks ----
 
-using pcdiff_ln::BM;
-using pcdiff_ln::THREADS;
+// ---- wide rows (MAX_C < C <= MAX_C_WIDE): the normalised panel resident, W streamed ----
 
 constexpr int MAX_C_WIDE = 1024;
 
-// An A stage: one k block of the normalised rows, beside the W stage of the same k.
+namespace wide {
+
+using pcdiff_ln::SMEM_ALIGN;
+constexpr int BN = 128;                       // output columns a tile
+constexpr int WARPS = 8;                      // the consumer warps: they normalise, multiply
+constexpr int CONSUMERS = 32 * WARPS;         // and store
+constexpr int THREADS = CONSUMERS + 128;      // and a producer warpgroup (one thread works)
+constexpr int PRODUCER_REGS = 40;             // registers a thread after setmaxnreg:
+constexpr int CONSUMER_REGS = 232;            // 128 x 40 + 256 x 232 of the SM's 65,536
+constexpr int CHUNKS = MAX_C_WIDE / 8 / 32;   // a row's 8-element chunks a lane: 4
+constexpr int STAGES = 6;                     // W boxes in the ring
+constexpr int BOX_BYTES = 128;                // a k block of a row: one 128-byte swizzled row
+constexpr int STAGE_BYTES = BN * BOX_BYTES;   // a W stage: BN rows of one k block, 16 KB
+constexpr int PANEL_BYTES = 128 * 1024;       // the resident panel at most
+constexpr int BAR_CONSUMERS = 1;              // named barrier of the consumer warps
+
 template <typename TO>
-struct Wide {
-  static constexpr bool BF16 = std::is_same<TO, bf16>::value;
-  static constexpr int BK = Path<TO>::BK;        // 64 (bf16) or 32 (fp32) deep, as W's stages
-  static constexpr int STAGES = Path<TO>::STAGES;
-  static constexpr int LDA = BF16 ? BK : BK + 4;  // bf16: 128-byte swizzled rows; fp32: pitch 36
-  static constexpr int A_STAGE = BM * LDA;        // elements
-  static constexpr int PER = BF16 ? 8 : 4;        // elements a 16-byte store
+struct Tile {
+  static constexpr int BK = BOX_BYTES / (int)sizeof(TO);  // k a block: 64 bf16 or 32 fp32
 };
 
 template <typename TO>
-size_t wide_smem_bytes() {
-  using W = Wide<TO>;
-  return (size_t)W::STAGES * (W::A_STAGE + pcdiff_ln::stage_elems<TO>()) * sizeof(TO) +
-         BM * sizeof(float2) + pcdiff_ln::SMEM_ALIGN;
+__host__ __device__ constexpr int kext(int c) {  // C rounded up to whole k blocks
+  return (c + Tile<TO>::BK - 1) / Tile<TO>::BK * Tile<TO>::BK;
 }
 
-template <typename TX>
-__device__ __forceinline__ void load8(const TX* src, float (&v)[8]) {
-  if constexpr (std::is_same<TX, bf16>::value) {
+// The panel's rows: the most of 128, 64, 32 whose panel takes at most PANEL_BYTES (bf16: 128
+// up to C = 512, 64 past it; fp32: 64 up to C = 512, 32 past it).
+template <typename TO>
+__host__ __device__ constexpr int panel_rows(int c) {
+  return 128 * kext<TO>(c) * (int)sizeof(TO) <= PANEL_BYTES  ? 128
+         : 64 * kext<TO>(c) * (int)sizeof(TO) <= PANEL_BYTES ? 64
+                                                              : 32;
+}
+
+template <typename TO>
+size_t smem_bytes(int c) {
+  return SMEM_ALIGN + (size_t)panel_rows<TO>(c) * kext<TO>(c) * sizeof(TO) +
+         (size_t)STAGES * STAGE_BYTES + (2 * STAGES + 1) * sizeof(unsigned long long);
+}
+
+int block_rows(int c, bool out_bf16) {
+  return out_bf16 ? panel_rows<bf16>(c) : panel_rows<float>(c);
+}
+
+struct WideArgs {
+  CUtensorMap w_map[pcdiff_ln::MAX_OUT];  // W_i [F_i, C] in the product dtype: boxes of BN
+                                          // rows x one k block
+  CUtensorMap x_map;                      // x [rows, C] (x in the product dtype): boxes of
+                                          // the panel's rows x one k block
+  Args ln;
+};
+
+// The block's rows and its share of the outputs' tiles: block (row tile, group) of a 1-D grid.
+struct Block {
+  int r0, t_lo, t_hi;
+};
+
+template <int PR>
+__device__ __forceinline__ Block block_of(const Args& a) {
+  const int tiles = pcdiff_ln::total_tiles<bf16>(a);  // BN-column tiles (both paths)
+  const int g = (int)(blockIdx.x % (unsigned)a.groups);
+  Block b;
+  b.r0 = (int)(blockIdx.x / (unsigned)a.groups) * PR;
+  b.t_lo = (int)((long long)g * tiles / a.groups);
+  b.t_hi = (int)((long long)(g + 1) * tiles / a.groups);
+  return b;
+}
+
+// The LN affine at the lane's chunks (lane l: chunks l + 32 j), 16-byte loads, once a block.
+struct Affine {
+  float sc[CHUNKS][8], bi[CHUNKS][8];
+};
+
+__device__ __forceinline__ void load_affine(const Args& a, Affine& af) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < CHUNKS; ++j) {
+    const int col = 8 * (lane + 32 * j);
+    float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0, b0 = s0, b1 = s0;
+    if (col < a.c) {
+      s0 = reinterpret_cast<const float4*>(a.ln_scale + col)[0];
+      s1 = reinterpret_cast<const float4*>(a.ln_scale + col)[1];
+      b0 = reinterpret_cast<const float4*>(a.ln_bias + col)[0];
+      b1 = reinterpret_cast<const float4*>(a.ln_bias + col)[1];
+    }
+    const float sv[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      af.sc[j][e] = sv[e];
+      af.bi[j][e] = bv[e];
+    }
+  }
+}
+
+// 8 elements (bf16 or fp32, 16-byte aligned) as fp32.
+template <typename T>
+__device__ __forceinline__ void load8(const T* src, float (&v)[8]) {
+  if constexpr (std::is_same<T, bf16>::value) {
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
     const bf16* h = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
@@ -107,240 +199,578 @@ __device__ __forceinline__ void load8(const TX* src, float (&v)[8]) {
   }
 }
 
-// The block's rows' (mean, rstd) into `stats`: warp w takes rows 16 w .. 16 w + 15, lane l the
-// 8-element chunks l, l + 32, ... of a row (C % 32 == 0: C / 8 chunks, at most 128). Rows past
-// `rows` get (0, 0), so their normalised values are the LN bias: finite and never stored.
-template <typename TX>
-__device__ __forceinline__ void wide_stats(const Args& a, int r0, float2* stats) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int C = a.c, chunks = C / 8;
-  const TX* x = static_cast<const TX*>(a.x);
-#pragma unroll 2
-  for (int i = 0; i < BM / pcdiff_ln::WARPS; ++i) {
-    const int rl = warp * (BM / pcdiff_ln::WARPS) + i, row = r0 + rl;
-    float s = 0.f, s2 = 0.f;
-    if (row < a.rows) {
-      const TX* src = x + (size_t)row * C;
+// (x - mean) rstd scale + bias of 8 elements, the fp32 affine.
+__device__ __forceinline__ void affine8(float (&v)[8], float mean, float rstd, const float* sc,
+                                        const float* bi) {
 #pragma unroll
-      for (int j = 0; j < MAX_C_WIDE / 256; ++j) {
+  for (int e = 0; e < 8; ++e)
+    v[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[e], mean), rstd), sc[e]), bi[e]);
+}
+
+// The warp's ROWS rows normalised, GROUP at a time so that a group's loads, butterflies and
+// divisions overlap (all of a warp's rows at once measured slower): pass 1 sums each row's x
+// and x^2 in fp32, lane by lane over its chunks (lane l: chunks l, l + 32, ...) in order, then
+// across the warp by an xor butterfly, and takes the fast-variance statistics; pass 2 reads
+// the chunks again and writes (x - mean) rstd scale + bias. load(i, ch, v) gives chunk ch of
+// the warp's row i (zeros where the row has no data), store(i, ch, y) writes it; chunks in
+// [C / 8, chunks) are written as zeros.
+constexpr int GROUP = 4;
+
+template <int ROWS, typename Load, typename Store>
+__device__ __forceinline__ void normalise_rows(const Args& a, int chunks, Load&& load,
+                                               Store&& store) {
+  static_assert(ROWS % GROUP == 0, "whole groups of rows");
+  const int lane = threadIdx.x % 32, live = a.c / 8;
+  Affine af;
+  load_affine(a, af);
+#pragma unroll 1
+  for (int i0 = 0; i0 < ROWS; i0 += GROUP) {
+    float mean[GROUP], rstd[GROUP];
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i) {
+      mean[i] = rstd[i] = 0.f;  // the sums of x and x^2, then the statistics
+#pragma unroll
+      for (int j = 0; j < CHUNKS; ++j) {
         const int ch = lane + 32 * j;
-        if (ch < chunks) {
-          float v[8];
-          load8<TX>(src + 8 * ch, v);
+        if (ch >= live) continue;
+        float v[8];
+        load(i0 + i, ch, v);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            s = __fadd_rn(s, v[e]);
-            s2 = __fadd_rn(s2, __fmul_rn(v[e], v[e]));
-          }
+        for (int e = 0; e < 8; ++e) {
+          mean[i] = __fadd_rn(mean[i], v[e]);
+          rstd[i] = __fadd_rn(rstd[i], __fmul_rn(v[e], v[e]));
         }
       }
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-    }
-    if (lane == 0) {
-      const float mean = __fdiv_rn(s, (float)C);
-      const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)C), __fmul_rn(mean, mean)), 0.f);
-      stats[rl] = row < a.rows ? make_float2(mean, rsqrtf(__fadd_rn(var, a.eps)))
-                               : make_float2(0.f, 0.f);
-    }
-  }
-}
-
-// The k block of stage s (k chunk s % kc_n) of LN(x) into A slot `dst`: 128 rows x BK columns,
-// read from x, normalised with `stats`, the fp32 affine, rounded to TO. Columns past C are
-// zeros. bf16: the 128-byte swizzle of a_at's k block; fp32: rows of pitch LDA.
-template <typename TX, typename TO>
-__device__ __forceinline__ void wide_a_stage(const Args& a, int r0, int kc, const float2* stats,
-                                             TO* dst) {
-  using W = Wide<TO>;
-  constexpr int CH = W::BK / W::PER;  // 16-byte chunks a row: 8
-  const int C = a.c, k0 = kc * W::BK;
-  const TX* x = static_cast<const TX*>(a.x);
+    for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-  for (int j = 0; j < BM * CH / THREADS; ++j) {
-    const int i = threadIdx.x + j * THREADS;
-    const int r = i / CH, ch = i % CH, col = k0 + ch * W::PER;
-    float y[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) y[e] = 0.f;
-    if (col < C && r0 + r < a.rows) {
-      const float2 st = stats[r];
-      const TX* src = x + (size_t)(r0 + r) * C + col;
-      float v[8];
-      if constexpr (W::BF16) {
-        load8<TX>(src, v);
-      } else if constexpr (std::is_same<TX, bf16>::value) {
-        const uint2 raw = *reinterpret_cast<const uint2*>(src);
-        const bf16* h = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) v[e] = __bfloat162float(h[e]);
-      } else {
-        const float4 p = *reinterpret_cast<const float4*>(src);
-        v[0] = p.x; v[1] = p.y; v[2] = p.z; v[3] = p.w;
+      for (int i = 0; i < GROUP; ++i) {
+        mean[i] = __fadd_rn(mean[i], __shfl_xor_sync(0xffffffffu, mean[i], off));
+        rstd[i] = __fadd_rn(rstd[i], __shfl_xor_sync(0xffffffffu, rstd[i], off));
       }
 #pragma unroll
-      for (int e = 0; e < W::PER; ++e)
-        y[e] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v[e], st.x), st.y),
-                                   __ldg(a.ln_scale + col + e)),
-                         __ldg(a.ln_bias + col + e));
+    for (int i = 0; i < GROUP; ++i) {
+      const float s2 = rstd[i];
+      mean[i] = __fdiv_rn(mean[i], (float)a.c);
+      const float var = fmaxf(__fsub_rn(__fdiv_rn(s2, (float)a.c), __fmul_rn(mean[i], mean[i])),
+                              0.f);
+      rstd[i] = rsqrtf(__fadd_rn(var, a.eps));
     }
-    if constexpr (W::BF16) {
-      *reinterpret_cast<uint4*>(dst + r * W::LDA + ((ch ^ (r & 7)) << 3)) =
-          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
-                     pack_bf16(y[6], y[7]));
+#pragma unroll
+    for (int i = 0; i < GROUP; ++i)
+#pragma unroll
+      for (int j = 0; j < CHUNKS; ++j) {
+        const int ch = lane + 32 * j;
+        if (ch >= chunks) continue;
+        float y[8];
+        if (ch < live) {
+          load(i0 + i, ch, y);
+          affine8(y, mean[i], rstd[i], af.sc[j], af.bi[j]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) y[e] = 0.f;
+        }
+        store(i0 + i, ch, y);
+      }
+  }
+}
+
+// The 16-byte chunk c (within its k block) of panel row r, k block kb: k blocks of [PR][BK] in
+// the 128-byte swizzle (chunk c of a row at c ^ (row % 8)), the TMA box's layout and wgmma's
+// K-major operand.
+template <typename TO, int PR>
+__device__ __forceinline__ TO* panel_at(TO* sa, int r, int kb, int c) {
+  constexpr int BK = Tile<TO>::BK;
+  return sa + kb * (PR * BK) + r * BK + ((c ^ (r & 7)) * (16 / (int)sizeof(TO)));
+}
+
+// Chunk ch (8 elements) of the warp's panel row i as fp32: the panel's own (x in the product
+// dtype, brought by the producer's TMA boxes: rows past `rows` and columns past C zeros), or
+// x's from device memory (x in the other dtype). bf16 panel: 16-byte chunk ch % 8 of k block
+// ch / 8; fp32: 16-byte chunks 2 (ch % 4), + 1 of k block ch / 4.
+template <typename TX, typename TO, int PR>
+__device__ __forceinline__ void panel_load(const Args& a, int r0, const TO* sa, int row, int ch,
+                                           float (&v)[8]) {
+  if constexpr (std::is_same<TX, TO>::value) {
+    if constexpr (std::is_same<TO, bf16>::value) {
+      load8<bf16>(panel_at<TO, PR>(const_cast<TO*>(sa), row, ch >> 3, ch & 7), v);
     } else {
-      *reinterpret_cast<float4*>(dst + r * W::LDA + ch * W::PER) =
-          make_float4(y[0], y[1], y[2], y[3]);
+      const float4 p0 = *reinterpret_cast<const float4*>(
+          panel_at<TO, PR>(const_cast<TO*>(sa), row, ch >> 2, 2 * (ch & 3)));
+      const float4 p1 = *reinterpret_cast<const float4*>(
+          panel_at<TO, PR>(const_cast<TO*>(sa), row, ch >> 2, 2 * (ch & 3) + 1));
+      v[0] = p0.x; v[1] = p0.y; v[2] = p0.z; v[3] = p0.w;
+      v[4] = p1.x; v[5] = p1.y; v[6] = p1.z; v[7] = p1.w;
+    }
+  } else if (r0 + row < a.rows) {
+    load8<TX>(static_cast<const TX*>(a.x) + (size_t)(r0 + row) * a.c + 8 * ch, v);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = 0.f;
+  }
+}
+
+// The consumers' panel: rows [r0, r0 + PR) of LN(x) in the product dtype, normalised in
+// place (or from x) by normalise_rows, zeros past C. Warp w takes rows w PR / 8 .. .
+template <typename TX, typename TO, int PR>
+__device__ __forceinline__ void panel(const Args& a, int r0, TO* sa, unsigned long long* xbar) {
+  constexpr int ROWS = PR / WARPS;
+  const int rw = (threadIdx.x / 32) * ROWS;
+  if constexpr (std::is_same<TX, TO>::value) mbar_wait(xbar, 0);
+  normalise_rows<ROWS>(
+      a, kext<TO>(a.c) / 8,
+      [&](int i, int ch, float (&v)[8]) { panel_load<TX, TO, PR>(a, r0, sa, rw + i, ch, v); },
+      [&](int i, int ch, const float (&y)[8]) {
+        if constexpr (std::is_same<TO, bf16>::value) {
+          *reinterpret_cast<uint4*>(panel_at<TO, PR>(sa, rw + i, ch >> 3, ch & 7)) =
+              make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                         pack_bf16(y[6], y[7]));
+        } else {
+          *reinterpret_cast<float4*>(panel_at<TO, PR>(sa, rw + i, ch >> 2, 2 * (ch & 3))) =
+              make_float4(y[0], y[1], y[2], y[3]);
+          *reinterpret_cast<float4*>(panel_at<TO, PR>(sa, rw + i, ch >> 2, 2 * (ch & 3) + 1)) =
+              make_float4(y[4], y[5], y[6], y[7]);
+        }
+      });
+}
+
+// The producer's one thread: the panel's x boxes (x in the product dtype), then every W stage
+// of the block's sequence (tile t_lo + s / kc_n, k block s % kc_n) into the ring by the TMA,
+// each slot refilled once the eight consumer warps have released it.
+template <typename TX, typename TO, int PR>
+__device__ __forceinline__ void produce(const WideArgs& wa, TO* sa, TO* ring,
+                                        unsigned long long* full, unsigned long long* empty,
+                                        unsigned long long* xbar, const Block& bk, int kc_n) {
+  constexpr int BK = Tile<TO>::BK;
+  if constexpr (std::is_same<TX, TO>::value) {
+    mbar_expect_tx(xbar, (unsigned)(PR * kc_n * BOX_BYTES));
+    for (int kb = 0; kb < kc_n; ++kb)
+      tma_load_2d(sa + kb * PR * BK, &wa.x_map, xbar, kb * BK, bk.r0);
+  }
+  const int stages = (bk.t_hi - bk.t_lo) * kc_n;
+#pragma unroll 1
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % STAGES, use = s / STAGES;
+    if (use > 0) mbar_wait(&empty[slot], (use - 1) & 1);
+    int n0;
+    const int o = pcdiff_ln::tile_output<TO>(wa.ln, bk.t_lo + s / kc_n, n0);
+    mbar_expect_tx(&full[slot], STAGE_BYTES);
+    tma_load_2d(ring + slot * (STAGE_BYTES / (int)sizeof(TO)), &wa.w_map[o], &full[slot],
+                (s % kc_n) * BK, n0);
+  }
+}
+
+// ---- bf16 products: wgmma ----
+
+// The bias and activation of 32 columns (group q) of a warpgroup's accumulator, as bf16 pairs:
+// v[h][i] holds rows + 8 h of n8 block 4 q + i.
+template <int ACT, int N, typename Div>
+__device__ __forceinline__ void pack_cols(const float (&acc)[N / 2], int q, const float2 (&b)[4],
+                                          bool hb, unsigned (&v)[2][4], Div div) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 4 * q + i;
+      v[h][i] = pack_bf16(pcdiff_ln::bias_act<ACT>(acc[4 * j + 2 * h], hb, b[i].x, div),
+                          pcdiff_ln::bias_act<ACT>(acc[4 * j + 2 * h + 1], hb, b[i].y, div));
+    }
+}
+
+// The epilogue of a warpgroup's 64 x N share of a tile (columns n0 .. of output o, rows
+// row_base ..): epilogue_bf16's stores (a 4 x 4 transpose across a quad's lanes, 16 bytes a
+// lane), its activation's divisions on DivFast and, for a 32-column group with any operand
+// outside the fast path's range, all again on DivRn.
+template <int ACT, int N>
+__device__ __forceinline__ void wide_epilogue_bf16(const Args& a, int o, int n0, int row_base,
+                                                   const float (&acc)[N / 2]) {
+  const int F = a.f[o];
+  const float* bias = a.b[o];
+  bf16* out = static_cast<bf16*>(a.out[o]);
+  const bool hb = bias != nullptr;
+  const int t = threadIdx.x % 128, lane = t % 32, tig = lane & 3;
+  const bool odd = tig & 1, hi = tig & 2;
+  const int row0 = row_base + 16 * (t / 32) + (lane >> 2);
+#pragma unroll
+  for (int q = 0; q < N / 32; ++q) {
+    if (n0 + 32 * q >= F) break;  // F % 64 == 0: a tile's last columns may lie past F
+    float2 b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      b[i] = hb ? *reinterpret_cast<const float2*>(bias + n0 + 8 * (4 * q + i) + 2 * tig)
+                : make_float2(0.f, 0.f);
+    unsigned v[2][4];
+    bool ok = true;
+    pack_cols<ACT, N>(acc, q, b, hb, v, pcdiff_ln::DivFast{ok});
+    if (!ok) pack_cols<ACT, N>(acc, q, b, hb, v, pcdiff_ln::DivRn());
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned s0 = odd ? v[h][0] : v[h][1], s1 = odd ? v[h][2] : v[h][3];
+      unsigned g0 = __shfl_xor_sync(0xffffffffu, s0, 1), g1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      if (odd) {
+        v[h][0] = g0;
+        v[h][2] = g1;
+      } else {
+        v[h][1] = g0;
+        v[h][3] = g1;
+      }
+      s0 = hi ? v[h][0] : v[h][2];
+      s1 = hi ? v[h][1] : v[h][3];
+      g0 = __shfl_xor_sync(0xffffffffu, s0, 2);
+      g1 = __shfl_xor_sync(0xffffffffu, s1, 2);
+      if (hi) {
+        v[h][0] = g0;
+        v[h][1] = g1;
+      } else {
+        v[h][2] = g0;
+        v[h][3] = g1;
+      }
+      const int row = row0 + 8 * h;
+      if (row < a.rows)
+        *reinterpret_cast<uint4*>(out + (size_t)row * F + n0 + 8 * (4 * q + tig)) =
+            make_uint4(v[h][0], v[h][1], v[h][2], v[h][3]);
     }
   }
 }
 
-// The wide block: the statistics, then the outputs' tiles of the block's group with the A and
-// W rings in step, and K3's epilogues.
-template <typename TX, typename TO>
-__device__ __forceinline__ void wide_block(const Args& a, unsigned char* smem) {
-  using W = Wide<TO>;
-  using P = Path<TO>;
-  TO* aring = reinterpret_cast<TO*>(
-      smem + ((pcdiff_ln::SMEM_ALIGN - (smem_u32(smem) & (pcdiff_ln::SMEM_ALIGN - 1))) &
-              (pcdiff_ln::SMEM_ALIGN - 1)));
-  TO* wring = aring + W::STAGES * W::A_STAGE;
-  float2* stats = reinterpret_cast<float2*>(wring + W::STAGES * pcdiff_ln::stage_elems<TO>());
-  const int r0 = pcdiff_ln::block_row0(a);
-  const pcdiff_ln::Span sp = pcdiff_ln::block_span<TO>(a);
-
-  pcdiff_ln::ring_start<TO>(a, sp, wring);
-  wide_stats<TX>(a, r0, stats);
-  __syncthreads();
-#pragma unroll
-  for (int s = 0; s < W::STAGES - 1; ++s)
-    if (s < sp.stages) wide_a_stage<TX, TO>(a, r0, s % sp.kc_n, stats, aring + s * W::A_STAGE);
-
-  if constexpr (W::BF16) {
-    const int wg = threadIdx.x / 128;
-    float acc[P::BN / 2];
+// A consumer warpgroup's products and epilogues over the block's tiles. PR = 128: its 64
+// rows by the tile's 128 columns; PR = 64: the 64 rows by its 64 of the tile's columns. Both
+// warpgroups read every stage, so their epilogues run together on all eight warps. One wgmma
+// group stays in flight: a stage's slot is released once the next stage's products are
+// issued and its own are done.
+template <int PR>
+__device__ __forceinline__ void products_bf16(const Args& a, const bf16* sa, const bf16* ring,
+                                              unsigned long long* full,
+                                              unsigned long long* empty, const Block& bk) {
+  constexpr int BK = Tile<bf16>::BK;
+  constexpr int N = PR == 128 ? BN : BN / 2;  // the warpgroup's columns of a tile
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const bf16* a_wg = sa + (PR == 128 ? wg * 64 * BK : 0);  // its rows of every k block
+  const int b_off = PR == 128 ? 0 : wg * (BN / 2) * BK;    // its columns of every stage
+  const int row_base = bk.r0 + (PR == 128 ? 64 * wg : 0);
+  const int kc_n = kext<bf16>(a.c) / BK;
+  float acc[N / 2];
+  int s = 0;
 #pragma unroll 1
-    for (int s = 0; s < sp.stages; ++s) {
-      const bf16* ws = pcdiff_ln::ring_step<bf16>(a, sp, wring, s);
-      const int kc = s % sp.kc_n;
-      const bf16* as = aring + (s % W::STAGES) * W::A_STAGE + wg * 64 * W::LDA;
+  for (int t = bk.t_lo; t < bk.t_hi; ++t) {
+#pragma unroll 1
+    for (int kc = 0; kc < kc_n; ++kc, ++s) {
+      mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
+      const bf16* ws = ring + (s % STAGES) * (STAGE_BYTES / 2) + b_off;
+      const bf16* as = a_wg + kc * (PR * BK);
       wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < P::BK / 16; ++ks)
-        wgmma_m64k16<P::BN>(acc, sw128_desc(as + 16 * ks), sw128_desc(ws + 16 * ks),
-                            kc > 0 || ks > 0);
+      for (int ks = 0; ks < BK / 16; ++ks)
+        wgmma_m64k16<N>(acc, sw128_desc(as + 16 * ks), sw128_desc(ws + 16 * ks),
+                        kc > 0 || ks > 0);
       wgmma_commit();
-      const int sn = s + W::STAGES - 1;  // its slot is stage s - 1's, freed by the barrier
-      if (sn < sp.stages)
-        wide_a_stage<TX, TO>(a, r0, sn % sp.kc_n, stats, aring + (sn % W::STAGES) * W::A_STAGE);
-      wgmma_wait<0>();
-      if (kc == sp.kc_n - 1) {
-        int n0;
-        const int o = pcdiff_ln::tile_output<bf16>(a, sp.t_lo + s / sp.kc_n, n0);
-        switch (a.act[o]) {
-          case pcdiff_ln::ACT_GELU:
-            pcdiff_ln::epilogue_bf16<pcdiff_ln::ACT_GELU>(a, o, n0, r0, acc); break;
-          case pcdiff_ln::ACT_GELU_TANH:
-            pcdiff_ln::epilogue_bf16<pcdiff_ln::ACT_GELU_TANH>(a, o, n0, r0, acc); break;
-          case pcdiff_ln::ACT_QUICK_GELU:
-            pcdiff_ln::epilogue_bf16<pcdiff_ln::ACT_QUICK_GELU>(a, o, n0, r0, acc); break;
-          default: pcdiff_ln::epilogue_bf16<pcdiff_ln::ACT_NONE>(a, o, n0, r0, acc);
-        }
-      }
+      wgmma_wait<1>();  // the previous stage's products are done: release its slot
+      if (kc > 0 && lane == 0) mbar_arrive(&empty[(s - 1) % STAGES]);
     }
-  } else {
-    const int ty = threadIdx.x / 16;
-    float acc[8][8];
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[(s - 1) % STAGES]);
+    int n0;
+    const int o = pcdiff_ln::tile_output<bf16>(a, t, n0);
+    n0 += PR == 128 ? 0 : wg * (BN / 2);
+    switch (a.act[o]) {
+      case pcdiff_ln::ACT_GELU:
+        wide_epilogue_bf16<pcdiff_ln::ACT_GELU, N>(a, o, n0, row_base, acc); break;
+      case pcdiff_ln::ACT_GELU_TANH:
+        wide_epilogue_bf16<pcdiff_ln::ACT_GELU_TANH, N>(a, o, n0, row_base, acc); break;
+      case pcdiff_ln::ACT_QUICK_GELU:
+        wide_epilogue_bf16<pcdiff_ln::ACT_QUICK_GELU, N>(a, o, n0, row_base, acc); break;
+      default: wide_epilogue_bf16<pcdiff_ln::ACT_NONE, N>(a, o, n0, row_base, acc);
+    }
+  }
+}
+
+// ---- fp32 products: 3xTF32 on mma.sync ----
+
+// x's parts in TF32: hi = rna(x), lo = rna(x - hi).
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi, unsigned& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// acc += the warp's rows of one k block of the panel (`ak`: its [PR][32] swizzled rows) times
+// its columns of the W stage, in 3xTF32: per 8-deep step lo hi, hi lo, hi hi. Warp w: rows
+// (w / 4) 16 MT + 16 mt + g (+ 8), columns (w % 4) 32 + 8 nt + g of the stage; the m16n8k8
+// fragments of ptx.cuh's mma_tf32, each fragment's 32 loads on 32 banks.
+template <int MT>
+__device__ __forceinline__ void stage_3xtf32(float (&acc)[MT][4][4], const float* ak,
+                                             const float* ws) {
+  constexpr int BK = Tile<float>::BK;
+  const int warp = (threadIdx.x / 32) % WARPS, lane = threadIdx.x % 32, g = lane >> 2,
+            t = lane & 3;
+  const int r0 = (warp / 4) * 16 * MT + g;  // (r0 + 8) % 8 == r0 % 8: one swizzle for both
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int kk = 0; kk < BK / 8; ++kk) {
+    unsigned ahi[MT][4], alo[MT][4];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 1
-    for (int s = 0; s < sp.stages; ++s) {
-      const float* ws = pcdiff_ln::ring_step<float>(a, sp, wring, s);
-      const int kc = s % sp.kc_n;
-      pcdiff_ln::fma_stage_fp32<2>(acc, aring + (s % W::STAGES) * W::A_STAGE + ty * W::LDA,
-                                   W::LDA, ws);
-      const int sn = s + W::STAGES - 1;
-      if (sn < sp.stages)
-        wide_a_stage<TX, TO>(a, r0, sn % sp.kc_n, stats, aring + (sn % W::STAGES) * W::A_STAGE);
-      if (kc == sp.kc_n - 1) {
-        int n0;
-        const int o = pcdiff_ln::tile_output<float>(a, sp.t_lo + s / sp.kc_n, n0);
-        switch (a.act[o]) {
-          case pcdiff_ln::ACT_GELU:
-            pcdiff_ln::epilogue_fp32<pcdiff_ln::ACT_GELU>(a, o, n0, r0, acc); break;
-          case pcdiff_ln::ACT_GELU_TANH:
-            pcdiff_ln::epilogue_fp32<pcdiff_ln::ACT_GELU_TANH>(a, o, n0, r0, acc); break;
-          case pcdiff_ln::ACT_QUICK_GELU:
-            pcdiff_ln::epilogue_fp32<pcdiff_ln::ACT_QUICK_GELU>(a, o, n0, r0, acc); break;
-          default: pcdiff_ln::epilogue_fp32<pcdiff_ln::ACT_NONE>(a, o, n0, r0, acc);
-        }
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r = r0 + 16 * mt;
+      const float* row = ak + r * BK + t;
+      const int c0 = ((2 * kk) ^ (r & 7)) << 2, c1 = ((2 * kk + 1) ^ (r & 7)) << 2;
+      const float x[4] = {row[c0], row[8 * BK + c0], row[c1], row[8 * BK + c1]};
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int e = 0; e < 4; ++e) split_tf32(x[e], ahi[mt][e], alo[mt][e]);
+    }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int nt = 0; nt < 4; ++nt) {
+      const int n = (warp % 4) * 32 + 8 * nt + g;
+      const float* wrow = ws + n * BK + t;
+      unsigned bhi[2], blo[2];
+      split_tf32(wrow[((2 * kk) ^ (n & 7)) << 2], bhi[0], blo[0]);
+      split_tf32(wrow[((2 * kk + 1) ^ (n & 7)) << 2], bhi[1], blo[1]);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_tf32(acc[mt][nt], alo[mt], bhi[0], bhi[1]);
+        mma_tf32(acc[mt][nt], ahi[mt], blo[0], blo[1]);
+        mma_tf32(acc[mt][nt], ahi[mt], bhi[0], bhi[1]);
       }
     }
   }
-  cp_async_wait<0>();
 }
 
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(pcdiff_ln::THREADS, Path<TO>::MIN_BLOCKS)
-ln_denses_wide_kernel(const Args a) {
+template <int ACT, int MT, typename Div>
+__device__ __forceinline__ void act_tile(const float (&acc)[MT][4][4], const float2 (&b)[4],
+                                         bool hb, float (&v)[MT][4][4], Div div) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[mt][nt][e] = pcdiff_ln::bias_act<ACT>(acc[mt][nt][e], hb, e & 1 ? b[nt].y : b[nt].x,
+                                                div);
+}
+
+// The bias, activation (DivFast, the DivRn retake) and float2 stores of the warp's share of a
+// finished tile (columns n0 .. of output o, block rows r0 ..).
+template <int ACT, int MT>
+__device__ __forceinline__ void wide_epilogue_fp32(const Args& a, int o, int n0, int r0,
+                                                   const float (&acc)[MT][4][4]) {
+  const int F = a.f[o];
+  const float* bias = a.b[o];
+  float* out = static_cast<float*>(a.out[o]);
+  const bool hb = bias != nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int c0 = n0 + (warp % 4) * 32 + 2 * t, row0 = r0 + (warp / 4) * 16 * MT + g;
+  float2 b[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+    b[nt] = hb && c0 + 8 * nt < F ? *reinterpret_cast<const float2*>(bias + c0 + 8 * nt)
+                                  : make_float2(0.f, 0.f);
+  float v[MT][4][4];
+  bool ok = true;
+  act_tile<ACT, MT>(acc, b, hb, v, pcdiff_ln::DivFast{ok});
+  if (!ok) act_tile<ACT, MT>(acc, b, hb, v, pcdiff_ln::DivRn());
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * mt + 8 * h;
+      if (row >= a.rows) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+        if (c0 + 8 * nt < F)  // F % 64 == 0: a tile's last 64 columns may lie past F
+          *reinterpret_cast<float2*>(out + (size_t)row * F + c0 + 8 * nt) =
+              make_float2(v[mt][nt][2 * h], v[mt][nt][2 * h + 1]);
+    }
+}
+
+// The consumer warps' products and epilogues over the block's tiles: each stage's 3xTF32
+// products, then its slot released.
+template <int PR>
+__device__ __forceinline__ void products_fp32(const Args& a, const float* sa,
+                                              const float* ring, unsigned long long* full,
+                                              unsigned long long* empty, const Block& bk) {
+  constexpr int BK = Tile<float>::BK, MT = PR / 32;  // a warp's m16 tiles: PR / 2 rows
+  const int lane = threadIdx.x % 32, kc_n = kext<float>(a.c) / BK;
+  float acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  int s = 0;
+#pragma unroll 1
+  for (int t = bk.t_lo; t < bk.t_hi; ++t) {
+#pragma unroll 1
+    for (int kc = 0; kc < kc_n; ++kc, ++s) {
+      mbar_wait(&full[s % STAGES], (s / STAGES) & 1);
+      stage_3xtf32<MT>(acc, sa + kc * (PR * BK), ring + (s % STAGES) * (STAGE_BYTES / 4));
+      if (lane == 0) mbar_arrive(&empty[s % STAGES]);  // its fragments are in registers
+    }
+    int n0;
+    const int o = pcdiff_ln::tile_output<float>(a, t, n0);
+    switch (a.act[o]) {
+      case pcdiff_ln::ACT_GELU:
+        wide_epilogue_fp32<pcdiff_ln::ACT_GELU, MT>(a, o, n0, bk.r0, acc); break;
+      case pcdiff_ln::ACT_GELU_TANH:
+        wide_epilogue_fp32<pcdiff_ln::ACT_GELU_TANH, MT>(a, o, n0, bk.r0, acc); break;
+      case pcdiff_ln::ACT_QUICK_GELU:
+        wide_epilogue_fp32<pcdiff_ln::ACT_QUICK_GELU, MT>(a, o, n0, bk.r0, acc); break;
+      default: wide_epilogue_fp32<pcdiff_ln::ACT_NONE, MT>(a, o, n0, bk.r0, acc);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  }
+}
+
+template <typename TX, typename TO, int PR>
+__global__ void __launch_bounds__(THREADS, 1)
+ln_denses_wide_kernel(const __grid_constant__ WideArgs wa) {
   extern __shared__ __align__(128) unsigned char smem[];
-  wide_block<TX, TO>(a, smem);
+  const Args& a = wa.ln;
+  TO* sa = reinterpret_cast<TO*>(
+      smem + ((SMEM_ALIGN - (smem_u32(smem) & (SMEM_ALIGN - 1))) & (SMEM_ALIGN - 1)));
+  const int kx = kext<TO>(a.c);
+  TO* ring = sa + PR * kx;
+  unsigned long long* full =
+      reinterpret_cast<unsigned long long*>(ring + STAGES * (STAGE_BYTES / (int)sizeof(TO)));
+  unsigned long long* empty = full + STAGES;
+  unsigned long long* xbar = empty + STAGES;
+  const Block bk = block_of<PR>(a);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], WARPS);
+    }
+    mbar_init(xbar, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == CONSUMERS)
+      produce<TX, TO, PR>(wa, sa, ring, full, empty, xbar, bk, kx / Tile<TO>::BK);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    panel<TX, TO, PR>(a, bk.r0, sa, xbar);
+    fence_proxy_async();  // the panel's writes, for wgmma's reads
+    named_sync(BAR_CONSUMERS, CONSUMERS);  // every warp's rows, for every warp's products
+    if constexpr (std::is_same<TO, bf16>::value)
+      products_bf16<PR>(a, sa, ring, full, empty, bk);
+    else
+      products_fp32<PR>(a, sa, ring, full, empty, bk);
+  }
 }
 
 // ---- launch ----
 
-// The instantiation for width c: the resident panel up to MAX_C, the streamed one past it.
-template <typename TX, typename TO>
-void (*kernel_for(int c))(const Args) {
-  return c <= pcdiff_ln::MAX_C ? ln_denses_kernel<TX, TO> : ln_denses_wide_kernel<TX, TO>;
-}
-
-// Lets the instantiation for width c use `smem` bytes of dynamic shared memory (once per
-// kernel and size).
-template <typename TX, typename TO>
-int configure(int c, size_t smem) {
-  static size_t configured[2] = {0, 0};  // dynamic shared memory each kernel may use
-  const int wide = c > pcdiff_ln::MAX_C;
-  if (smem > configured[wide]) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel_for<TX, TO>(c), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Lets `kernel` use `smem` bytes of dynamic shared memory (once per size and kernel).
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t smem, size_t& configured) {
+  if (smem > configured) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
-    configured[wide] = smem;
+    configured = smem;
   }
   return 0;
 }
 
-int row_tiles(int rows) { return (rows - 1) / pcdiff_ln::BM + 1; }
-
-template <typename TO>
-size_t smem_for(int c) {
-  return c <= pcdiff_ln::MAX_C ? pcdiff_ln::smem_bytes<TO>(c) : wide_smem_bytes<TO>();
+// The instantiation for (TX, TO) at width c and its shared memory, configured; then
+// `fn(kernel, smem)`.
+template <typename TX, typename TO, typename Fn>
+int with_kernel(int c, Fn&& fn) {
+  constexpr int TALL = std::is_same<TO, bf16>::value ? 128 : 64;  // panel_rows<TO>'s two
+  static size_t configured[2] = {0, 0};
+  const size_t smem = smem_bytes<TO>(c);
+  const bool tall = panel_rows<TO>(c) == TALL;
+  auto kernel =
+      tall ? ln_denses_wide_kernel<TX, TO, TALL> : ln_denses_wide_kernel<TX, TO, TALL / 2>;
+  if (const int e = set_smem(kernel, smem, configured[tall])) return e;
+  return fn(kernel, smem);
 }
 
 template <typename TX, typename TO>
 int launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_for<TO>(a.c);
-  if (const int e = configure<TX, TO>(a.c, smem)) return e;
-  const unsigned blocks = (unsigned)row_tiles(a.rows) * (unsigned)a.groups;
-  kernel_for<TX, TO>(a.c)<<<blocks, pcdiff_ln::THREADS, smem, stream>>>(a);
+  constexpr bool FP32 = std::is_same<TO, float>::value;
+  constexpr int BK = Tile<TO>::BK;
+  const int pr = panel_rows<TO>(a.c);
+  WideArgs wa = {};
+  wa.ln = a;
+  for (int i = 0; i < a.n_out; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.f[i]};
+    const cuuint64_t strides[1] = {(cuuint64_t)a.c * sizeof(TO)};
+    const cuuint32_t box[2] = {BK, BN};
+    if (const int e = pcdiff_tma::tensor_map(&wa.w_map[i], a.w[i], 2, dims, strides, box, FP32))
+      return e;
+  }
+  if constexpr (std::is_same<TX, TO>::value) {
+    const cuuint64_t dims[2] = {(cuuint64_t)a.c, (cuuint64_t)a.rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)a.c * sizeof(TX)};
+    const cuuint32_t box[2] = {BK, (cuuint32_t)pr};
+    if (const int e = pcdiff_tma::tensor_map(&wa.x_map, a.x, 2, dims, strides, box, FP32))
+      return e;
+  }
+  const unsigned blocks = (unsigned)((a.rows - 1) / pr + 1) * (unsigned)a.groups;
+  return with_kernel<TX, TO>(a.c, [&](auto kernel, size_t smem) {
+    kernel<<<blocks, THREADS, smem, stream>>>(wa);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename TX, typename TO>
+int occupancy(int c, int* blocks_per_sm) {
+  return with_kernel<TX, TO>(c, [&](auto kernel, size_t smem) {
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, THREADS,
+                                                              smem);
+  });
+}
+
+}  // namespace wide
+
+// ---- launch ----
+
+// Lets the narrow kernel use `smem` bytes of dynamic shared memory (once per instantiation
+// and size).
+template <typename TX, typename TO>
+int configure(size_t smem) {
+  static size_t configured = 0;
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        ln_denses_kernel<TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
+  return 0;
+}
+
+// Rows a block at width c: the narrow kernel's BM, or the wide one's panel.
+int block_rows(int c, bool out_bf16) {
+  return c <= pcdiff_ln::MAX_C ? pcdiff_ln::BM : wide::block_rows(c, out_bf16);
+}
+
+template <typename TX, typename TO>
+int launch(const Args& a, cudaStream_t stream) {
+  if (a.c > pcdiff_ln::MAX_C) return wide::launch<TX, TO>(a, stream);
+  const size_t smem = pcdiff_ln::smem_bytes<TO>(a.c);
+  if (const int e = configure<TX, TO>(smem)) return e;
+  const unsigned blocks = (unsigned)((a.rows - 1) / pcdiff_ln::BM + 1) * (unsigned)a.groups;
+  ln_denses_kernel<TX, TO><<<blocks, pcdiff_ln::THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename TX, typename TO>
 int occupancy(int c, int* blocks_per_sm) {
-  const size_t smem = smem_for<TO>(c);
-  if (const int e = configure<TX, TO>(c, smem)) return e;
+  if (c > pcdiff_ln::MAX_C) return wide::occupancy<TX, TO>(c, blocks_per_sm);
+  const size_t smem = pcdiff_ln::smem_bytes<TO>(c);
+  if (const int e = configure<TX, TO>(smem)) return e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, kernel_for<TX, TO>(c), pcdiff_ln::THREADS, smem);
+      blocks_per_sm, ln_denses_kernel<TX, TO>, pcdiff_ln::THREADS, smem);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
@@ -383,8 +813,8 @@ extern "C" int pcdiff_ln_denses_fwd(const void* x, const void* ln_scale, const v
     a.act[i] = on ? act[i] : pcdiff_ln::ACT_NONE;
     if (on) tiles += (f[i] + bn - 1) / bn;
   }
-  if (groups < 1 || groups > tiles ||
-      (long long)row_tiles(rows) * groups > 0x7fffffffLL)
+  const long long row_tiles = (rows - 1) / block_rows(c, out_bf16 != 0) + 1;
+  if (groups < 1 || groups > tiles || row_tiles * groups > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   a.n_out = n_out;
   a.rows = rows;
@@ -397,13 +827,14 @@ extern "C" int pcdiff_ln_denses_fwd(const void* x, const void* ln_scale, const v
 }
 
 // The forward kernel's tiling for the x_bf16 / out_bf16 instantiation at width c (0 < c <=
-// 1024, c % 32 == 0; past 256 the wide kernel's), for the wrapper's choice of column groups: rows a block, output columns
-// a tile, and how many blocks an SM of the current device holds at once at the launch's
-// shared memory (the occupancy API). Returns the cudaError_t (0 on success).
+// 1024, c % 32 == 0; past 256 the wide kernels'), for the wrapper's choice of column groups:
+// rows a block, output columns a tile, and how many blocks an SM of the current device holds
+// at once at the launch's shared memory (the occupancy API). Returns the cudaError_t (0 on
+// success).
 extern "C" int pcdiff_ln_denses_tiling(int x_bf16, int out_bf16, int c, int* bm, int* bn,
                                        int* blocks_per_sm) {
   if (c <= 0 || c > MAX_C_WIDE || c % 32 != 0) return (int)cudaErrorInvalidValue;
-  *bm = pcdiff_ln::BM;
+  *bm = block_rows(c, out_bf16 != 0);
   *bn = out_bf16 ? Path<bf16>::BN : Path<float>::BN;
   if (x_bf16)
     return out_bf16 ? occupancy<bf16, bf16>(c, blocks_per_sm)

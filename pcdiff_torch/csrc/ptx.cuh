@@ -3,12 +3,13 @@
 // accumulation and the rounding to TF32, ex2.approx and bf16 packing, the warpgroup product
 // wgmma (A from shared memory or from registers) with its fences and shared-memory
 // descriptors, the pieces of a warp-specialised ring (mbarriers, named barriers, the tensor
-// memory accelerator's 2-D copy) and of a thread-block cluster (its barrier, a peer block's
-// shared memory). Shared by
+// memory accelerator's 2-D and 3-D copies) and of a thread-block cluster (its barrier, a peer
+// block's shared memory). Shared by
 // the attention loop (attention_fwd.cuh), the LayerNorm -> projections loop
-// (ln_dense_fwd.cuh), the whole-MLP kernel (ln_mlp.cu) and the LayerNorm -> projections
-// backward (ln_dense_bwd.cu); the TF32 pieces by the head-split attention's fp32 kernel
-// (attention.cu).
+// (ln_dense_fwd.cuh) and its wide rows (ln_dense.cu), the whole-MLP kernel (ln_mlp.cu), the
+// LayerNorm -> projections backward (ln_dense_bwd.cu) and the head-dim-64 attention
+// (attention_mh64.cu); the TF32 pieces by the head-split attention's fp32 kernel (attention.cu)
+// and the wide rows' fp32 path.
 
 #pragma once
 
@@ -245,6 +246,30 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+// d (+)= A B for a 64 x 64 x 16 step of one warpgroup with A in registers (the m16n8k16 A
+// fragment of wgmma_m64n256k16_rs) and B in shared memory: 64 x 16 K-major (sw128_desc,
+// TRANS_B = 0) or 16 x 64 MN-major (sw128_desc_mn, TRANS_B = 1); the accumulators in the
+// layout of wgmma_m64n64k16's. The same register rules as wgmma_m64n256k16_rs.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const unsigned (&a)[4],
+                                                   unsigned long long db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate), "n"(TRANS_B));
+}
+
 // The shared-memory descriptor of an MN-major bf16 operand in the 128-byte swizzle, the
 // layout wgmma reads with its transpose bit set: rows of 64 elements (128 bytes) contiguous
 // in M (or N), one row per k, whose 16-byte chunk c sits at c ^ (k % 8); groups of 8 k rows
@@ -410,6 +435,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, unsigned
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// The same for a 3-D tensor map, coordinates (c0 innermost, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, unsigned long long* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 }  // namespace pcdiff_ptx

@@ -3,8 +3,8 @@ axis (forward and backward), and over the head-split ``[B, H, N, D]`` layout (fo
 
 Counterpart of :func:`pcdiff.ops.flash_attention.fused_attention_mh` and its custom VJP.
 :func:`fused_attention_mh` is a :class:`torch.autograd.Function`. On a CUDA tensor its
-forward launches ``csrc/attention_mh.cu`` (it replaces the TPU kernel
-``pcdiff/ops/flash_attention.py::_mh_kernel``) and its backward launches
+forward launches ``csrc/attention_mh.cu``, at head dim 64 ``csrc/attention_mh64.cu`` (both
+replace the TPU kernel ``pcdiff/ops/flash_attention.py::_mh_kernel``) and its backward launches
 ``csrc/attention_mh_bwd.cu`` (it replaces ``_mh_bwd_kernel``); on a CPU tensor they run
 :func:`_torch_attention_mh` and :func:`_torch_attention_mh_bwd`, the plain PyTorch
 versions of the same functions. The backward recomputes the softmax from the saved
@@ -51,6 +51,7 @@ to v's dtype for PV. :func:`set_attention_backend` governs both kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -87,7 +88,17 @@ _K7_QUERY_TILE = 64  # queries a K7 block, as csrc/attention.cu checks its grid 
 _EXP_WARPS = 16
 _EXP_SLICE = 128
 _EXP_MAX_KEYS = 1152
+# K1 at head dim 64 (csrc/attention_mh64.cu): 128 queries a block, 128-key tiles, and up to 4
+# blocks (a cluster) splitting a query tile's keys. A block's fixed work (its query tile, the
+# stores) weighs ~1.6 key tiles, and a split block's cluster barriers and merge ~2 more
+# (fitted to the Point-E path's panels timed with and without splits on an H100)
+_K1_64_BQ = 128
+_K1_64_BKV = 128
+_K1_64_MAX_SPLITS = 4
+_K1_64_FIXED = 1.6
+_K1_64_MERGE = 2.0
 _fn = None
+_fn64 = None
 _bwd_fn = None
 _k7_fn = None
 
@@ -239,19 +250,78 @@ def _check(q, k, v, num_heads: int, head_dims=_K1_HEAD_DIMS) -> None:
         raise ValueError(f"the kernel takes a batch of at most {_GRID_YZ}, got {b}")
 
 
+def _kernel64_fn():
+    global _fn64
+    if _fn64 is None:
+        fn = _native.library("attention_mh64").pcdiff_attention_mh64_fwd
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn64 = fn
+    return _fn64
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_64_capacity(device: int) -> tuple:
+    """Clusters of 1 .. ``_K1_64_MAX_SPLITS`` blocks of the head-dim-64 kernel that CUDA
+    device ``device`` runs at once (the occupancy API at the kernel's shared memory; one
+    block an SM), checked against the kernel's query and key tiles."""
+    fn = _native.library("attention_mh64").pcdiff_attention_mh64_tiling
+    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = []
+    with torch.cuda.device(device):
+        for splits in range(1, _K1_64_MAX_SPLITS + 1):
+            clusters, bq, bkv = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            err = fn(splits, ctypes.byref(clusters), ctypes.byref(bq), ctypes.byref(bkv))
+            if err or clusters.value < 1 or (bq.value, bkv.value) != (_K1_64_BQ, _K1_64_BKV):
+                raise RuntimeError(f"attention_mh64 tiling query failed: cudaError_t {err}, "
+                                   f"{clusters.value} clusters of {splits}")
+            out.append(clusters.value)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=1024)
+def _k1_64_splits(panels: int, nq: int, nk: int, capacity: tuple) -> int:
+    """How many blocks (a cluster) split each query tile's keys at head dim 64: ``panels``
+    (batch rows x heads) of ``nq`` queries and ``nk`` keys, ``capacity[s - 1]`` clusters of
+    s blocks at once. The count that minimises waves x (key tiles a block + its fixed work,
+    ``_K1_64_FIXED`` tiles, and a split block's ``_K1_64_MERGE``), the fewest splits on a
+    tie; never more than the key tiles."""
+    tiles = -(-nq // _K1_64_BQ) * panels
+    ntiles = -(-nk // _K1_64_BKV)
+    cost = {s: -(-tiles // capacity[s - 1])
+               * (-(-ntiles // s) + _K1_64_FIXED + (s > 1) * _K1_64_MERGE)
+            for s in range(1, min(len(capacity), ntiles) + 1)}
+    return min(cost, key=lambda s: (cost[s], s))
+
+
 def _launch(q, k, v, num_heads: int):
+    """K1 on the card: at head dim 64 in the default mode ``csrc/attention_mh64.cu`` (fp32
+    inputs first rounded to bf16 copies in a scratch tensor, by the same call), else
+    ``csrc/attention_mh.cu``. One count a call, whatever its launches."""
     global launches
     _check(q, k, v, num_heads)
     b, nq, hd = q.shape
     nk, d = k.shape[1], hd // num_heads
     bf16_exp = _SOFTMAX_DTYPE == "bfloat16"
-    splits, slice_ = (_exp_plan(nk, d) or (0, 0)) if bf16_exp else (0, 0)
+    is_bf16 = int(q.dtype == torch.bfloat16)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = _kernel_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, nq, nk, num_heads, d, int(q.dtype == torch.bfloat16),
-            int(bf16_exp), splits, slice_, _native.stream(q.device))
+        if d == 64 and not bf16_exp:
+            scratch = (None if is_bf16 else
+                       torch.empty(q.numel() + 2 * k.numel(), dtype=torch.bfloat16,
+                                   device=q.device))
+            splits = _k1_64_splits(b * num_heads, nq, nk, _k1_64_capacity(q.device.index))
+            err = _kernel64_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), b, nq, nk, num_heads,
+                is_bf16, splits, _native.stream(q.device))
+        else:
+            splits, slice_ = (_exp_plan(nk, d) or (0, 0)) if bf16_exp else (0, 0)
+            err = _kernel_fn()(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                b, nq, nk, num_heads, d, is_bf16, int(bf16_exp), splits, slice_,
+                _native.stream(q.device))
     if err:
         raise RuntimeError(f"attention_mh kernel launch failed: cudaError_t {err}")
     launches += 1

@@ -19,7 +19,8 @@ orders in torch and holds them to ``_torch_attention_mh(..., mxu_dtype=bf16[, ex
 bf16])`` and ``_torch_attention`` within the tolerances ``chip_smoke.py`` holds the kernels
 to on the card (``ATTN_ATOL``, ``K7_TOL``), with bf16 inputs (K7 fp32: fp32 inputs) at 8 heads of 32,
 two rows, the backbone's z, read and write sites and the ragged point-cloud encoder, and K1's
-two orders at head dim 64 at the Point-E path's vision, base40M and textvec panels; it
+two orders at head dim 64 at the Point-E path's vision, base40M and textvec panels (the
+default mode's in 128-key tiles, ``attention_mh64.cu``'s); it
 shows that K7's fp32 tolerance fails an order that drops one of 3xTF32's correction terms
 (in S or in PV) or all of them (1xTF32), and holds the fp32 order to the TPU kernel in
 interpret mode at a ragged head-dim-64 shape. With
@@ -74,19 +75,20 @@ def _online_stats(q, k):
     return m, l
 
 
-def _emulate_k1(q, k, v):
+def _emulate_k1(q, k, v, tile=TILE):
     """K1's order on [B, H, N, D] fp32 copies of bf16 operands: P rounded to bf16 against the
-    running max, the output rescaled by alpha, divided by the fp32 row sum after PV."""
+    running max, the output rescaled by alpha, divided by the fp32 row sum after PV; keys in
+    tiles of ``tile`` (64 in the shared loop, 128 in the head-dim-64 kernel)."""
     m = torch.full(q.shape[:-1] + (1,), -math.inf)
     l = torch.zeros_like(m)
     o = torch.zeros(q.shape)
-    for k0 in range(0, k.shape[-2], TILE):
-        s = q @ k[..., k0:k0 + TILE, :].transpose(-1, -2)
+    for k0 in range(0, k.shape[-2], tile):
+        s = q @ k[..., k0:k0 + tile, :].transpose(-1, -2)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2((m - m_new) * LOG2E)
         p = _exp2_fma(s, m_new * LOG2E)
         l = l * alpha + p.sum(-1, keepdim=True)
-        o = o * alpha + p.bfloat16().float() @ v[..., k0:k0 + TILE, :]
+        o = o * alpha + p.bfloat16().float() @ v[..., k0:k0 + tile, :]
         m = m_new
     return o * (1.0 / l)
 
@@ -251,12 +253,51 @@ def test_loop_order_within_card_tolerance(site, kernel):
 
 
 # K1 at head dim 64, the Point-E path's: (rows, Nq, Nk, heads) of the ViT-L/14 tower, base40M
-# (CFG's 2B rows) and base40M-textvec; the bf16 exp mode takes the two sweeps at D = 64
+# (CFG's 2B rows) and base40M-textvec; the default mode runs csrc/attention_mh64.cu, whose
+# key tiles are 128 wide; the bf16 exp mode takes the two sweeps of the shared loop
 SHAPES_D64 = {"vision": (1, 257, 257, 16), "base40M": (2, 1281, 1281, 8),
               "textvec": (1, 1026, 1026, 8)}
+K1_TILE_D64 = 128  # attention_mh64.cu's BKV
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K1 bf16 exp"])
+def _emulate_k1_split(q, k, v, splits, tile=K1_TILE_D64):
+    """K1's order at head dim 64 with a query tile's keys split over ``splits`` blocks (a
+    cluster): block r takes key tiles [n r / splits, n (r + 1) / splits) of the n tiles and
+    keeps K1's online order on them (O unnormalised, its running max m_r and its row sum
+    l_r); rank 0 then takes the others' in rank order, m = max(m, m_r), the scales
+    2^((m_old - m) log2e) and 2^((m_r - m) log2e) (each product rounded once) on O and l, and
+    divides by the fp32 sum at the end."""
+    ntiles = -(-k.shape[-2] // tile)
+    parts = []
+    for r in range(splits):
+        a, b = tile * (ntiles * r // splits), min(k.shape[-2], tile * (ntiles * (r + 1) // splits))
+        m = torch.full(q.shape[:-1] + (1,), -math.inf)
+        l = torch.zeros_like(m)
+        o = torch.zeros(q.shape)
+        for k0 in range(a, b, tile):
+            s = q @ k[..., k0:min(k0 + tile, b), :].transpose(-1, -2)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            alpha = torch.exp2((m - m_new) * LOG2E)
+            p = _exp2_fma(s, m_new * LOG2E)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + p.bfloat16().float() @ v[..., k0:min(k0 + tile, b), :]
+            m = m_new
+        parts.append((o, m, l))
+    o, m, l = parts[0]
+    for o_r, m_r, l_r in parts[1:]:
+        mn = torch.maximum(m, m_r)
+        sa, sb = torch.exp2((m - mn) * LOG2E), torch.exp2((m_r - mn) * LOG2E)
+        o, l, m = o * sa + o_r * sb, l * sa + l_r * sb, mn
+    return o * (1.0 / l)
+
+
+K1_ORDERS_D64 = {"K1": lambda q, k, v: _emulate_k1(q, k, v, tile=K1_TILE_D64),
+                 "K1 bf16 exp": _emulate_k1_bf16_exp,
+                 "K1 2 splits": lambda q, k, v: _emulate_k1_split(q, k, v, 2),
+                 "K1 3 splits": lambda q, k, v: _emulate_k1_split(q, k, v, 3)}
+
+
+@pytest.mark.parametrize("kernel", list(K1_ORDERS_D64))
 @pytest.mark.parametrize("site", list(SHAPES_D64))
 def test_k1_order_at_head_dim_64_within_card_tolerance(site, kernel):
     rows, nq, nk, heads = SHAPES_D64[site]
@@ -266,11 +307,11 @@ def test_k1_order_at_head_dim_64_within_card_tolerance(site, kernel):
                          * (2 / math.sqrt(64))).bfloat16()
     k, v = (torch.from_numpy(rng.standard_normal((rows, nk, heads * 64), dtype=np.float32)
                              ).bfloat16() for _ in range(2))
-    exp = torch.float32 if kernel == "K1" else torch.bfloat16
+    exp = torch.bfloat16 if kernel == "K1 bf16 exp" else torch.float32
     ref = fa._torch_attention_mh(q, k, v, heads, mxu_dtype=torch.bfloat16,
                                  exp_dtype=exp).float()
     split = (t.float().reshape(rows, t.shape[1], heads, 64).transpose(1, 2) for t in (q, k, v))
-    got = fa._fold(K1_ORDERS[kernel](*split), q).float()
+    got = fa._fold(K1_ORDERS_D64[kernel](*split), q).float()
     err = (got - ref).abs().max().item()
     assert err <= ATTN_ATOL, f"{kernel} {site} (D = 64): max abs error {err:.3e}"
 

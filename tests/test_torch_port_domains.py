@@ -260,24 +260,38 @@ def test_launch_still_refuses_shapes_outside_the_domain():
                    torch.float32, None)
 
 
+H100_CLUSTERS = (132, 66, 39, 30)  # clusters of 1-4 one-block-an-SM blocks an H100 ran at once
+
+
 @pytest.mark.parametrize("softmax,nk,heads,want", [
     ("float32", 643, 8, (32, 0, 0, 0)),      # the default mode takes no plan
     ("bfloat16", 643, 8, (32, 1, 6, 112)),   # one pass: 6 warps of 112 keys, the last 83
     ("bfloat16", 1025, 8, (32, 1, 9, 128)),  # 9 warps of 128 keys, the last 1
     ("bfloat16", 4000, 8, (32, 1, 0, 0)),    # past 1152 keys: the two-sweep loop
-    ("float32", 1281, 4, (64, 0, 0, 0)),     # head dim 64
+    ("float32", 1281, 4, ("attention_mh64", 4, 0, 4)),  # head dim 64: its own kernel, with
+                                                          # a scratch for the bf16 copies; 4
+                                                          # query tiles: keys split over 4
     ("bfloat16", 257, 4, (64, 1, 0, 0)),     # head dim 64: always the two sweeps
 ])
 def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, heads, want):
     """K1's launch passes (head_dim, bf16_exp, splits, slice) from ``fa._exp_plan``; the
-    kernel is stood in for by a function that records them."""
+    kernel is stood in for by a function that records them. The default mode at head dim 64
+    launches ``attention_mh64.cu`` instead, with (heads, is_bf16, splits) on an H100's
+    cluster capacity."""
     seen = []
 
     def kernel(*args):
         seen.append((args[8],) + args[10:13])
         return 0
 
+    def kernel64(*args):
+        assert args[4] is not None  # fp32 inputs: the scratch of their bf16 copies
+        seen.append(("attention_mh64",) + args[8:11])
+        return 0
+
     monkeypatch.setattr(fa, "_kernel_fn", lambda: kernel)
+    monkeypatch.setattr(fa, "_kernel64_fn", lambda: kernel64)
+    monkeypatch.setattr(fa, "_k1_64_capacity", lambda device: H100_CLUSTERS)
     monkeypatch.setattr(fa._native, "stream", lambda device: 0)
     monkeypatch.setattr(fa.torch.cuda, "device", contextlib.nullcontext)
     monkeypatch.setattr(fa, "launches", 0)

@@ -21,6 +21,11 @@
 - K4's bf16 path (``ln_dense_bwd.cu``) has no WMMA, atomics or TF32: K3's bf16 block with
   K4's epilogue, and dy and dW on ``ptx.cuh``'s ``wgmma`` with shared-memory operands; the
   cuts of its profiling script (``scripts/ln_bwd_cuts.py``) still apply to its source.
+- The Point-E path's kernels: K1 at head dim 64 (``attention_mh64.cu``) and K3's wide rows
+  (``ln_dense.cu`` namespace ``wide``) are built on ``wgmma``, the TMA and mbarrier rings (K3's
+  fp32 path on 3xTF32); the flagship's loops beside them are unchanged byte for byte; their
+  panels and rings fit an SM's shared memory; ``fa._k1_64_splits`` plans with the kernel's
+  constants; the cuts of ``scripts/k3_wide_cuts.py`` still apply.
 """
 
 import os
@@ -29,7 +34,7 @@ import re
 import pytest
 
 from pcdiff_torch.ops import _native
-from pcdiff_torch.scripts import exp_cuts, k7_cuts, ln_bwd_cuts, mlp_cuts
+from pcdiff_torch.scripts import exp_cuts, k3_wide_cuts, k7_cuts, ln_bwd_cuts, mlp_cuts
 
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
@@ -234,3 +239,122 @@ def test_layer_norm_bwd_plan_matches_the_kernel():
         assert 1 <= blocks <= lnorm._BWD_PER_SM * 132
         assert blocks * lnorm._BWD_WARPS <= rows  # every warp of the grid has a row
     assert lnorm._bwd_blocks(1000, 512, 132) == -(-1000 // lnorm._BWD_ROWS)
+
+
+# The flagship's loops, byte for byte: the shared bf16 attention loop (K1 at head dim 32, K7
+# bf16, K8) and the narrow K3 block with its epilogues (also K5's and K4's); the Point-E
+# path's kernels were redesigned beside them, in their own code
+FLAGSHIP_LOOPS = {
+    "attention_fwd.cuh": "bb679055e448b8601c4ecea52144abfd0b89c262cf74832fe58fc7d8d31193c4",
+    "ln_dense_fwd.cuh": "df36eedc1d540585412ec035891263d4054507b65d61b672f6b14376cd686a3a",
+}
+
+
+@pytest.mark.parametrize("name", list(FLAGSHIP_LOOPS))
+def test_flagship_loops_are_unchanged(name):
+    import hashlib
+
+    digest = hashlib.sha256((_native.CSRC_DIR / name).read_bytes()).hexdigest()
+    assert digest == FLAGSHIP_LOOPS[name], f"{name} changed"
+
+
+def _code(name):
+    return re.sub(r"//[^\n]*", "", (_native.CSRC_DIR / name).read_text())
+
+
+def test_k1_head_dim_64_builds_on_wgmma_tma_and_mbarriers():
+    """K1 at head dim 64 (``attention_mh64.cu``): a producer warpgroup's TMA loads into an
+    mbarrier ring, S = Q K^T and P V on ``wgmma`` (P from registers, V MN-major), registers
+    moved to the consumers by ``setmaxnreg``; no ``mma.sync``, ``cp.async`` or atomics; the
+    shared loop keeps only the bf16 exp mode at head dim 64."""
+    code = _code("attention_mh64.cu")
+    for call in ("tma_load_3d(", "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
+                 "wgmma_m64n128k16(", "wgmma_m64n64k16_rs<1>(", "sw128_desc_mn(",
+                 "setmaxnreg_inc<", "setmaxnreg_dec<", "ex2(", "pcdiff_tma::tensor_map("):
+        assert call in code, call
+    for banned in ("mma_bf16(", "cp_async_16(", "atomic", "attention_fwd.cuh"):
+        assert banned not in code, banned
+    mh = _code("attention_mh.cu")
+    assert "launch<FULL, HD_" in mh and "if constexpr (HD_ == 32)" in mh
+    assert "head_dim == 64 && bf16_exp" in mh
+
+
+def test_k3_wide_rows_build_on_wgmma_tma_and_3xtf32():
+    """K3's wide rows (``ln_dense.cu`` namespace ``wide``): the bf16 path streams W by the TMA
+    through an mbarrier ring into ``wgmma`` with a producer warpgroup (``setmaxnreg``), the
+    fp32 path multiplies in 3xTF32 on ``mma.sync``; both normalise each row once (no
+    per-column-tile pass) and take the epilogue's divisions on DivFast with a DivRn retake."""
+    text = (_native.CSRC_DIR / "ln_dense.cu").read_text()
+    wide = re.sub(r"//[^\n]*", "", text[text.index("namespace wide {"):])
+    for call in ("tma_load_2d(", "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
+                 "wgmma_m64k16<N>(", "setmaxnreg_inc<", "setmaxnreg_dec<", "mma_tf32(",
+                 "round_tf32(", "pcdiff_ln::DivFast{ok}", "pcdiff_ln::DivRn()",
+                 "pcdiff_tma::tensor_map("):
+        assert call in wide, call
+    for banned in ("fma_stage_fp32", "wide_a_stage", "wmma", "atomic"):
+        assert banned not in wide, banned
+    assert wide.count("mma_tf32(") == 3  # lo hi, hi lo, hi hi
+
+
+def _constant(text, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_wide_panels_and_rings_fit_an_sm():
+    """The wide K3's resident panels and rings, and K1's ring at head dim 64, fit the 227 KB
+    of shared memory a block may take, at every width of the wide path: panels of the most of
+    128, 64 or 32 rows whose k blocks (128 bytes a row) take at most PANEL_BYTES (bf16: 128
+    rows to C = 512, 64 past it; fp32: 64 and 32) beside STAGES W boxes of BN rows."""
+    text = (_native.CSRC_DIR / "ln_dense.cu").read_text()
+    stages, box, bn = (_constant(text, n) for n in ("STAGES", "BOX_BYTES", "BN"))
+    panel = 128 * 1024
+    assert "constexpr int PANEL_BYTES = 128 * 1024;" in text
+    limit = 232448
+    for c in range(288, 1025, 32):
+        for size in (2, 4):
+            bk = box // size
+            kext = -(-c // bk) * bk
+            rows = next(r for r in (128, 64, 32) if r * kext * size <= panel)
+            assert (size, rows) in {(2, 128 if kext <= 512 else 64),
+                                    (4, 64 if c <= 512 else 32)}, (c, size, rows)
+            assert 1024 + rows * kext * size + stages * bn * box + 8 * (2 * stages + 1) <= limit
+    k1 = (_native.CSRC_DIR / "attention_mh64.cu").read_text()
+    bq, bkv, k1_stages = (_constant(k1, n) for n in ("BQ", "BKV", "STAGES"))
+    part = 16 * (64 // 8 + 1) * 256  # the merge's partials: 9 float4 a consumer thread
+    assert 1024 + 2 * 64 * (bq + 2 * k1_stages * bkv) + part + 8 * (2 * k1_stages + 1) <= limit
+
+
+# clusters of 1-4 blocks an H100 80GB HBM3 ran at once, one block an SM on 132 SMs (the
+# card's own count comes from pcdiff_attention_mh64_tiling)
+H100_CLUSTERS = (132, 66, 39, 30)
+
+
+@pytest.mark.parametrize("panel,want", [
+    ((16, 257, 257), 1),     # ViT-L/14: 48 query tiles of 3 key tiles, one short wave
+    ((16, 1281, 1281), 1),   # base40M at 2B rows: 176 of 11, two waves either way
+    ((16, 1026, 1026), 1),   # base40M-textvec at 2B rows: 144 of 9
+    ((8, 4353, 4353), 2),    # the upsampler: 280 of 35, a last wave of 16 unsplit
+    ((4, 4096, 4096), 1),    # the SDF model: 128 of 32, one wave unsplit
+    ((4, 3, 1281), 4),       # one short query tile a panel: its keys over 4 blocks
+])
+def test_k1_64_split_plan_matches_the_kernel(panel, want):
+    """``fa._k1_64_splits`` plans with the head-dim-64 kernel's query and key tiles and its
+    largest cluster, gives every block of a cluster at least one key tile, and at the Point-E
+    path's panels on an H100's capacity splits only where the query tiles fill their last wave
+    poorly enough to pay for a split block's merge."""
+    from pcdiff_torch.ops import flash_attention as fa
+
+    text = (_native.CSRC_DIR / "attention_mh64.cu").read_text()
+    for name, value in (("BQ", fa._K1_64_BQ), ("BKV", fa._K1_64_BKV),
+                        ("MAX_SPLITS", fa._K1_64_MAX_SPLITS)):
+        assert _constant(text, name) == value, name
+    panels, nq, nk = panel
+    splits = fa._k1_64_splits(panels, nq, nk, H100_CLUSTERS)
+    assert 1 <= splits <= min(fa._K1_64_MAX_SPLITS, -(-nk // fa._K1_64_BKV))
+    assert splits == want
+
+
+@pytest.mark.parametrize("cut", list(k3_wide_cuts.CUTS), ids=" / ".join)
+def test_k3_wide_cuts_apply_to_the_kernel_source(cut):
+    text = k3_wide_cuts.cut_source(cut)  # raises if a substitution no longer matches once
+    assert text != (_native.CSRC_DIR / "ln_dense.cu").read_text()
