@@ -4,7 +4,8 @@ hidden activation never reaching device memory.
 Counterpart of :func:`pcdiff.ops.ln_dense.fused_ln_mlp` and its custom VJP.
 :func:`fused_ln_mlp` is a :class:`torch.autograd.Function`. On a CUDA tensor its forward
 launches ``csrc/ln_mlp.cu`` (K5; it replaces the TPU kernel
-``pcdiff/ops/ln_dense.py::_ln_mlp_kernel``); on a CPU tensor, or under
+``pcdiff/ops/ln_dense.py::_ln_mlp_kernel``; C, O <= 256, and Point-E's wide rows C = O = 512,
+F = 2048); on a CPU tensor, or under
 ``set_lndense_backend("plain")`` (the switch of the LN+Dense kernels, which the JAX
 package's ``use_ln_mlp`` reads too), or outside its domain (:func:`_in_domain`), it runs
 :func:`_torch_ln_mlp`, the plain version. The backward is ``_mlp_bwd``'s: it recomputes
@@ -36,6 +37,7 @@ __all__ = ["fused_ln_mlp", "launches"]
 
 _MAX_C = 256
 _MAX_O = 256
+_MAX_C_WIDE = 512  # the wide rows: 256 < C = O <= 512, C % 128 == 0, F = 4 C (Point-E's MLP)
 
 launches = 0  # K5 launches since the last reset (chip_smoke.py resets it)
 _fn = None
@@ -74,13 +76,20 @@ def _kernel_fn():
     return _fn
 
 
+def _wide(c: int, f: int, o: int) -> bool:
+    """The wide rows' shapes: 256 < C = O <= 512 with C % 128 == 0 (the TPU kernel's lane
+    alignment) and F = 4 C."""
+    return _MAX_C < c <= _MAX_C_WIDE and c % 128 == 0 and o == c and f == 4 * c
+
+
 def _in_domain(x, w1, w2, out_dtype) -> bool:
-    """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` at K5's own
-    widths (fp32 or bf16, 0 < C <= 256 with C % 32 == 0, F % 64 == 0), and 0 < O <= 256
-    with O % 32 == 0."""
-    o = w2.shape[0]
-    return (ld._in_domain(x, [w1], out_dtype, _MAX_C) and 0 < o <= _MAX_O
-            and o % 32 == 0)
+    """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` (fp32 or bf16,
+    C % 32 == 0, F % 64 == 0) at K5's own widths, either 0 < C <= 256 and 0 < O <= 256 with
+    O % 32 == 0, or the wide rows (:func:`_wide`)."""
+    c, f, o = x.shape[-1] if x.dim() else 0, w1.shape[0], w2.shape[0]
+    if not ld._in_domain(x, [w1], out_dtype, _MAX_C_WIDE):
+        return False
+    return (c <= _MAX_C and 0 < o <= _MAX_O and o % 32 == 0) or _wide(c, f, o)
 
 
 def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
@@ -95,10 +104,12 @@ def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
     c = x.shape[-1]
     rows = x.numel() // c if c else 0
     f, o = w1.shape[0], w2.shape[0]
-    if (c % 32 or not 0 < c <= _MAX_C or rows == 0 or f == 0 or f % 64 or o % 32
-            or not 0 < o <= _MAX_O):
+    narrow = (c % 32 == 0 and 0 < c <= _MAX_C and f > 0 and f % 64 == 0 and o % 32 == 0
+              and 0 < o <= _MAX_O)
+    if rows == 0 or not (narrow or _wide(c, f, o)):
         raise ValueError(f"the kernel takes 0 < C <= {_MAX_C} with C % 32 == 0, F % 64 == 0, "
-                         f"0 < O <= {_MAX_O} with O % 32 == 0 and rows > 0, got x "
+                         f"0 < O <= {_MAX_O} with O % 32 == 0, or {_MAX_C} < C = O <= "
+                         f"{_MAX_C_WIDE} with C % 128 == 0 and F = 4C, and rows > 0, got x "
                          f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
     dev = x.device
     for t, shape, what in ((scale, (c,), "LN scale"), (bias, (c,), "LN bias"),

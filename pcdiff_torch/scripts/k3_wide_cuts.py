@@ -29,28 +29,28 @@ from ..ops import _native
 from ..ops import ln_dense as ld
 from .mlp_cuts import _time_ms
 
-# the kernel's pieces, as they stand in csrc/ln_dense.cu
-_NORMALISE = "  normalise_rows<ROWS>(\n      a, kext<TO>(a.c) / 8,"
+# the kernel's pieces, as they stand in csrc/ln_dense.cu (the panel's normalisation and the
+# 3xTF32 product are ln_wide.cuh's, cut at their calls)
+_NORMALISE = "    panel<TX, TO, PR>(a, bk.r0, sa, xbar, kx);\n"
+_X_ONLY = "    if constexpr (std::is_same<TX, TO>::value) mbar_wait(xbar, 0);\n"
 _WGMMA = ("        wgmma_m64k16<N>(acc, sw128_desc(as + 16 * ks), sw128_desc(ws + 16 * ks),\n"
           "                        kc > 0 || ks > 0);")
 _EPILOGUE_BF16 = "    n0 += PR == 128 ? 0 : wg * (BN / 2);\n"
 _TF32 = ("      stage_3xtf32<MT>(acc, sa + kc * (PR * BK), ring + (s % STAGES) * "
          "(STAGE_BYTES / 4));")
-_CORRECTIONS = ("        mma_tf32(acc[mt][nt], alo[mt], bhi[0], bhi[1]);\n"
-                "        mma_tf32(acc[mt][nt], ahi[mt], blo[0], blo[1]);\n")
+_3XTF32 = "      for (int mt = 0; mt < MT; ++mt) mma_3xtf32(acc[mt][nt], ahi[mt], alo[mt], bhi, blo);"
+_1XTF32 = "      for (int mt = 0; mt < MT; ++mt) mma_tf32(acc[mt][nt], ahi[mt], bhi[0], bhi[1]);"
 _EPILOGUE_FP32 = "    const int o = pcdiff_ln::tile_output<float>(a, t, n0);\n"
 
 # (path, cut name) -> substitutions (old, new)
 CUTS = {
     # the panel's x arrives, is not normalised
-    ("bf16", "no normalise"): [(_NORMALISE, "  if (a.rows < 0) normalise_rows<ROWS>(\n"
-                                            "      a, kext<TO>(a.c) / 8,")],
+    ("bf16", "no normalise"): [(_NORMALISE, _X_ONLY)],
     ("bf16", "no products"): [(_WGMMA, "        ;")],
     ("bf16", "no epilogue"): [(_EPILOGUE_BF16, _EPILOGUE_BF16 + "    if (a.rows > 0) continue;\n")],
-    ("fp32", "no normalise"): [(_NORMALISE, "  if (a.rows < 0) normalise_rows<ROWS>(\n"
-                                            "      a, kext<TO>(a.c) / 8,")],
+    ("fp32", "no normalise"): [(_NORMALISE, _X_ONLY)],
     ("fp32", "no products"): [(_TF32, "      (void)kc;")],
-    ("fp32", "1xTF32"): [(_CORRECTIONS, "")],
+    ("fp32", "1xTF32"): [(_3XTF32, _1XTF32)],
     ("fp32", "no epilogue"): [(_EPILOGUE_FP32, _EPILOGUE_FP32 + "    if (a.rows > 0) continue;\n")],
 }
 PATHS = {"bf16": torch.bfloat16, "fp32": torch.float32}

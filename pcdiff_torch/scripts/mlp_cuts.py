@@ -8,7 +8,9 @@ textual substitution (:data:`CUTS`), built by ``nvcc`` as the kernel itself is
 the flagship's two K5 sites: the z site (643 tokens a row) and the x site (1024), at the
 sampler's 2B = 64 rows in bf16 with the tanh GELU and at the train step's B = 32 rows in
 fp32 with the exact GELU, each also with no activation (the kernel's own ACT_NONE
-instantiation, not a cut). The kernel's time less a cut's is what the cut piece costs where
+instantiation, not a cut); and the wide rows (``namespace wide``) at Point-E's two sites of
+the image pipeline at B = 1 (base40M's 2B = 2 rows of 1281 tokens, the upsampler's 4353), C = O
+= 512, F = 2048, exact GELU, both dtypes. The kernel's time less a cut's is what the cut piece costs where
 it does not overlap the rest of the work. A cut's output is wrong by design: only its time
 is read. The substitutions must match the source exactly, so the script (and a CPU test)
 fails when the kernel changes under them. The table is printed and written to
@@ -40,6 +42,26 @@ _FMA1B = ("        pcdiff_ln::fma_stage_fp32<1>(acc1, sa + ty * lda + 64 * r + 3
 _FMA2 = ("        pcdiff_ln::fma_stage_fp32<2>(acc2[nh], sh + ty * H_LD + 32 * kk, H_LD,"
          " step(s++));")
 
+# the wide rows' pieces
+_W_FC1 = ("      wgmma_m64n32k16(acc1, da + (kb * PR * 64 * 2 + 32 * ks) / 16,\n"
+          "                      db + (kb * 64 * 64 * 2 + 32 * ks) / 16, !first || kb > 0 || ks > 0);")
+_W_FC2 = "    wgmma_m64n256k16_ss<0, 0>(acc2, da + 2 * kk, db + 2 * kk, 1);"
+_W_GELU = ("    hidden_pairs<ACT>(acc, p, b1, hp, pcdiff_ln::DivFast{ok});\n"
+           "    if (!ok) hidden_pairs<ACT>(acc, p, b1, hp, pcdiff_ln::DivRn());")
+_W_FILL = "    mbar_expect_tx(&full[s % STAGES], SLOT_BYTES);\n    return &full[s % STAGES];"
+_W_W1 = ("        tma_load_2d(dst + kb * 64 * 64, &a.w1_map, bar, 256 * j + 64 * kb, "
+         "(sh.c0 + t) * WFC);")
+_W_W2 = "      tma_load_2d(ring.slot(s), &a.w2_map, ring.fill(s), (sh.c0 + t) * WFC, 256 * h);"
+_W_FP32_W1 = "        tma_load_2d(dst + kb * 64 * 32, &a.w1_map, bar, 128 * j + 32 * kb, f0);"
+_W_FP32_W2 = ("      tma_load_2d(ring.slot(s), &a.w2_map, ring.fill(s), f0 + 32 * (q / 2), "
+              "256 * (q % 2));")
+_W_FP32_FC1 = "        pw::mma_3xtf32(acc1[nt], ahi, alo, bhi, blo);"
+_W_FP32_FC2 = "      pw::mma_3xtf32(acc2[nt], ahi, alo, bhi, blo);"
+_W_FP32_ACT = ("  act_frags<ACT>(acc, b, v, pcdiff_ln::DivFast{ok});\n"
+               "  if (!ok) act_frags<ACT>(acc, b, v, pcdiff_ln::DivRn());")
+# every stage completes without a copy: the consumers multiply stale slots
+_W_NO_STREAM = [(_W_FILL, "    mbar_arrive(&full[s % STAGES]);\n    return &full[s % STAGES];")]
+
 # (path, cut name) -> substitutions (old, new)
 CUTS = {
     ("bf16", "no fc1"): [(_FC1, "      ;")],
@@ -54,11 +76,26 @@ CUTS = {
     ("fp32", "no fc2"): [(_FMA2, "        step(s++);")],
     ("fp32", "no FMA"): [(_FMA1A, "      (void)ws;"), (_FMA1B, "        ;"),
                          (_FMA2, "        step(s++);")],
+    ("wide bf16", "no weight stream"): _W_NO_STREAM + [
+        (_W_W1, "        (void)bar, (void)dst;"), (_W_W2, "      ring.fill(s);")],
+    ("wide bf16", "no GELU"): [
+        (_W_GELU, "    hidden_pairs<ACT_NONE>(acc, p, b1, hp, pcdiff_ln::DivRn());")],
+    ("wide bf16", "no fc1"): [(_W_FC1, "      ;")],
+    ("wide bf16", "no fc2"): [(_W_FC2, "    ;")],
+    ("wide fp32", "no weight stream"): _W_NO_STREAM + [
+        (_W_FP32_W1, "        (void)bar, (void)dst;"), (_W_FP32_W2, "      ring.fill(s);")],
+    ("wide fp32", "no GELU"): [(_W_FP32_ACT, "  act_frags<ACT_NONE>(acc, b, v, pcdiff_ln::DivRn());")],
+    ("wide fp32", "no fc1"): [(_W_FP32_FC1, "        (void)bhi, (void)blo;")],
+    ("wide fp32", "no fc2"): [(_W_FP32_FC2, "      (void)bhi, (void)blo;")],
 }
-# (label, rows, tokens) per path, and the path's dtype and activation
-SITES = {"bf16": [("z", 64, 643), ("x", 64, 1024)], "fp32": [("z", 32, 643), ("x", 32, 1024)]}
-PATHS = {"bf16": (torch.bfloat16, "gelu_tanh"), "fp32": (torch.float32, "gelu")}
-C, F, O = 256, 1024, 256
+# (label, rows, tokens) per path, and the path's dtype, activation and (C, F, O)
+SITES = {"bf16": [("z", 64, 643), ("x", 64, 1024)], "fp32": [("z", 32, 643), ("x", 32, 1024)],
+         "wide bf16": [("base40M 2B", 2, 1281), ("upsample", 1, 4353)],
+         "wide fp32": [("base40M 2B", 2, 1281), ("upsample", 1, 4353)]}
+PATHS = {"bf16": (torch.bfloat16, "gelu_tanh"), "fp32": (torch.float32, "gelu"),
+         "wide bf16": (torch.bfloat16, "gelu"), "wide fp32": (torch.float32, "gelu")}
+SHAPES = {"bf16": (256, 1024, 256), "fp32": (256, 1024, 256), "wide bf16": (512, 2048, 512),
+          "wide fp32": (512, 2048, 512)}
 CUT_DIR = _native.BUILD_DIR / "cuts"
 
 
@@ -100,16 +137,16 @@ def _entry(lib):
     return fn
 
 
-def _inputs(g, rows, n, dtype):
+def _inputs(g, rows, n, dtype, c, f, o):
     """chip_smoke.py's K5 inputs: x [rows * n, C] and the fp32 parameters."""
     dev = torch.device("cuda", torch.cuda.current_device())
-    x = (torch.randn(rows * n, C, generator=g, device=dev) * 2 + 0.5).to(dtype)
-    return (x, 1 + 0.2 * torch.randn(C, generator=g, device=dev),
-            0.2 * torch.randn(C, generator=g, device=dev),
-            torch.randn(F, C, generator=g, device=dev) / 16,
-            0.2 * torch.randn(F, generator=g, device=dev),
-            torch.randn(O, F, generator=g, device=dev) / 32,
-            0.2 * torch.randn(O, generator=g, device=dev))
+    x = (torch.randn(rows * n, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    return (x, 1 + 0.2 * torch.randn(c, generator=g, device=dev),
+            0.2 * torch.randn(c, generator=g, device=dev),
+            torch.randn(f, c, generator=g, device=dev) / c ** 0.5,
+            0.2 * torch.randn(f, generator=g, device=dev),
+            torch.randn(o, f, generator=g, device=dev) / f ** 0.5,
+            0.2 * torch.randn(o, generator=g, device=dev))
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -142,16 +179,17 @@ def run(iters: int = 20) -> list:
     rows = []
     for path, sites in SITES.items():
         dtype, act = PATHS[path]
+        c, f, o = SHAPES[path]
         for label, b, n in sites:
-            x, scale, bias, w1, b1, w2, b2 = _inputs(g, b, n, dtype)
+            x, scale, bias, w1, b1, w2, b2 = _inputs(g, b, n, dtype, c, f, o)
             if dtype == torch.bfloat16:
                 w1, w2 = ld._product_weight(w1), ld._product_weight(w2)
-            out = torch.empty(b * n, O, dtype=dtype, device=x.device)
-            for a in (act, None):
+            out = torch.empty(b * n, o, dtype=dtype, device=x.device)
+            for a in (act, None) if c == 256 else (act,):
                 def call(fn, code=ld._ACT_CODES[a]):
                     err = fn(x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(),
                              b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                             b * n, C, F, O, code, 1e-5, int(dtype == torch.bfloat16),
+                             b * n, c, f, o, code, 1e-5, int(dtype == torch.bfloat16),
                              int(dtype == torch.bfloat16), stream)
                     if err:
                         raise RuntimeError(f"ln_mlp launch failed: cudaError_t {err}")

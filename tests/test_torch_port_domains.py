@@ -5,7 +5,8 @@ Each kernel states its domain as a pure check made before any launch:
 ``_k2_domain`` (K2: K1's at head dim 32 only), ``_k7_domain`` (K7: head dim 32 or 64, query
 tiles within the grid's y extent), ``ln_dense._in_domain`` (K3: 0 < C <= 1024, C % 32 == 0,
 fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), ``ln_dense._bwd_in_domain`` (K4: K3's
-at C <= 256) and ``ln_mlp._in_domain`` (K5: K3's at C <= 256 and 0 < O <= 256, O % 32 == 0):
+at C <= 256) and ``ln_mlp._in_domain`` (K5: K3's at C <= 256 and 0 < O <= 256, O % 32 == 0, or the wide rows
+256 < C = O <= 512, C % 128 == 0, F = 4C):
 the forward kernels were widened for the Point-E path, the backward ones were not, so no
 backward is handed a shape it was not built for. A CUDA
 tensor inside the domain launches the kernel; outside it takes the plain version, as the
@@ -156,7 +157,8 @@ def test_ln_dense_bwd_domain(c, fs, dtype, out, k3, k4):
 @pytest.mark.parametrize("c,f,o,want", [
     (256, 1024, 256, True), (128, 512, 128, True), (256, 1024, 512, False),
     (256, 1024, 48, False), (320, 1024, 256, False), (256, 1000, 256, False),
-    (512, 2048, 512, False),  # Point-E's MLP: K3 takes its fc1, K5 not the whole MLP
+    (512, 2048, 512, True),  # Point-E's MLP: the wide rows, C = O, F = 4C
+    (640, 2560, 640, False),  # the first such shape past the wide rows' C <= 512
 ])
 def test_ln_mlp_domain(c, f, o, want):
     x = torch.zeros(2, 3, c)

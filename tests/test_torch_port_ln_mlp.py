@@ -6,7 +6,8 @@ plain version, ``_torch_ln_mlp``, and the backward through the plain K3 and K4. 
 
 - K5's plain version against the Pallas kernel it replaces, in interpret mode as
   ``tests/test_ln_mlp.py`` runs it, and against ``_xla_ln_mlp``; C, F and O are multiples
-  of 128 (the JAX package's gate), N is ragged;
+  of 128 (the JAX package's gate), N is ragged; also at Point-E's width (C = O = 512,
+  F = 2048), which the kernel's wide rows take;
 - the wrapper's gradient against JAX autodiff through ``fused_ln_mlp``'s custom VJP, and
   against finite differences (``gradcheck``, float64);
 - the ``Mlp`` module, fused and on the dropout-active split path, against the JAX module
@@ -117,6 +118,33 @@ def test_ln_mlp_fwd_bf16_matches_pallas(rng):
     # one bf16 rounding (2^-8 of the element)
     np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())
     assert np.abs(got - want).mean() < 2e-3 * np.abs(want).mean()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ln_mlp_fwd_point_e_width_matches_pallas_and_xla(rng, dtype):
+    """Point-E's MLP, the wide rows of K5 (C = O = 512, F = 2048, exact GELU), ragged rows:
+    the plain version against the Pallas kernel in interpret mode and ``_xla_ln_mlp``."""
+    arrs = _mlp_inputs(rng, 2, 19, 512, 2048, 512)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x = jnp.asarray(arrs[0]).astype(jdt)
+    jargs = [x] + [jnp.asarray(a) for a in arrs[1:]]
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(jld._pallas_ln_mlp(*jargs, 1e-5, jdt, "gelu"), np.float32)
+    xla = np.asarray(jld._xla_ln_mlp(*jargs, 1e-5, jdt, "gelu"), np.float32)
+    targs = _port_args(*arrs)
+    targs[0] = torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
+    got = tlm._torch_ln_mlp(*targs, 1e-5, tdt, "gelu").float().numpy()
+    if dtype == "float32":
+        # fp32 LN, products and activation on every side; sums over 512 and 2048 in other
+        # orders
+        for want in (pallas, xla):
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+    else:
+        # as test_ln_mlp_fwd_bf16_matches_pallas: a last-bit difference can flip one bf16
+        # rounding of y or h, and the output takes one bf16 rounding
+        for want in (pallas, xla):
+            np.testing.assert_allclose(got, want, rtol=1e-2, atol=1e-2 * np.abs(want).max())
+            assert np.abs(got - want).mean() < 2e-3 * np.abs(want).mean()
 
 
 def test_ln_mlp_autograd_matches_jax(rng):

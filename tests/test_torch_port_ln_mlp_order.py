@@ -1,5 +1,6 @@
 """The arithmetic order of the whole-MLP kernel K5 (``pcdiff_torch/csrc/ln_mlp.cu``) against
-its plain version, on the CPU, at the flagship's width (C = 256, F = 1024, O = 256).
+its plain version, on the CPU, at the flagship's width (C = 256, F = 1024, O = 256) and at
+Point-E's (the wide rows, below).
 
 K5 normalises a block's rows once (fp32 fast-variance statistics, the fp32 affine) and
 rounds them to the product dtype, then walks F in chunks of 64. Per chunk it forms fc1 with
@@ -22,7 +23,17 @@ max |ref|, so a max-error limit cannot see a single rounding. Their mean errors,
 1.6e-3 and 1.3e-3 to 1.4e-3 of mean |ref|, fail K5_MEAN by more than ten times, where the
 sound order passes it by more than twenty. The ragged shape (C = 96, F = 192, O = 160) shows
 that the kernel's zero fill (the panel and W1 past C, W2's rows past O) leaves the sums
-unchanged. The emulation lives here only; nothing on the port's path calls it.
+unchanged.
+
+The wide rows (Point-E's MLP, C = O = 512, F = 2048; 67 rows, a ragged 64-row tile) split O
+between the consumers and form each chunk's h once, shared through shared memory; bf16
+products are wgmma k16 steps, fp32 ones 3xTF32 on mma.sync k8 steps (each operand split into
+TF32 parts hi = rna(x), lo = rna(x - hi); lo hi, hi lo, hi hi), and a cluster's two blocks
+sum half of F's chunks each, added in fp32. Readings of that order (exact GELU): fp32 8.7e-7
+to 1.1e-6 of max |ref|; bf16 2.4e-3 to 2.6e-3 of max |ref|, mean 5.2e-6 to 1.1e-5 of mean
+|ref|. Rejected: fp32 products in 1xTF32 (4.1e-4 of max |ref|, over K5_TOL), bf16 with h
+kept in fp32 (mean 1.6e-3, over K5_MEAN). The emulation lives here only; nothing on the
+port's path calls it.
 """
 
 import math
@@ -45,14 +56,14 @@ ACTS = [None, "gelu", "gelu_tanh", "quick_gelu"]
 DTYPES = [torch.float32, torch.bfloat16]
 
 
-def _inputs(dtype, seed, c=C, f=F, o=O):
+def _inputs(dtype, seed, c=C, f=F, o=O, rows=ROWS):
     """chip_smoke._mlp_inputs' distribution, from numpy."""
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0, shift=0.0):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * scale + shift)
 
-    x = t(ROWS, c, scale=2.0, shift=0.5).to(dtype)
+    x = t(rows, c, scale=2.0, shift=0.5).to(dtype)
     return (x, t(c, scale=0.2, shift=1.0), t(c, scale=0.2), t(f, c, scale=1 / math.sqrt(c)),
             t(f, scale=0.2), t(o, f, scale=1 / math.sqrt(f)), t(o, scale=0.2))
 
@@ -135,3 +146,96 @@ def test_k5_zero_fill_at_a_ragged_shape(dtype):
     assert max_rel <= K5_TOL[dtype]
     if dtype == torch.bfloat16:
         assert mean_rel <= K5_MEAN
+
+
+# ---- the wide rows: Point-E's MLP (C = O = 512, F = 2048) ----
+
+WIDE_ROWS, WC, WF = 67, 512, 2048  # a ragged row tile: the wide rows take 64 a block
+
+
+def _tf32(x):
+    """x rounded to TF32 as the kernel's round_tf32: to nearest, ties away from zero, the 13
+    low bits of fp32's layout zero."""
+    b = (x.contiguous().view(torch.int32).to(torch.int64) + 0x1000) & 0xFFFFE000
+    return torch.where(b >= 2 ** 31, b - 2 ** 32, b).to(torch.int32).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _steps(a, b, lo, hi, step, terms):
+    """sum over k in [lo, hi) of a[:, k] b[:, k]^T, one fp32 sum a k step as the kernel's
+    products take them: bf16 wgmma k16 steps (a, b the rounded operands), or 3xTF32 mma.sync
+    k8 steps (a, b their (hi, lo) TF32 parts: lo hi, hi lo, hi hi, in that order; with
+    terms = 1 hi hi only, 1xTF32)."""
+    if not isinstance(a, tuple):
+        out = torch.zeros(a.shape[0], b.shape[0])
+        for k0 in range(lo, hi, step):
+            out = out + a[:, k0:k0 + step] @ b[:, k0:k0 + step].t()
+        return out
+    (ahi, alo), (bhi, blo) = a, b
+    out = torch.zeros(ahi.shape[0], bhi.shape[0])
+    for k0 in range(lo, hi, step):
+        k = slice(k0, k0 + step)
+        if terms == 3:
+            out = out + alo[:, k] @ bhi[:, k].t()
+            out = out + ahi[:, k] @ blo[:, k].t()
+        out = out + ahi[:, k] @ bhi[:, k].t()
+    return out
+
+
+def _emulate_wide(x, scale, bias, w1, b1, w2, b2, dtype, act, splits=1, round_h=True, terms=3):
+    """The wide rows' order: y rounded to the product dtype; fc1 per k step (the F chunks
+    change no element's sum); b1 and the activation in fp32; h rounded; fc2 per O half (256
+    columns: a warpgroup's or four warps' share), its k steps over F in order, in ``splits``
+    partial tiles (a cluster's two blocks, each half of F's chunks) added in fp32; b2, one
+    cast. fp32 products in 3xTF32."""
+    mxu = ld._product_dtype(dtype)
+    y = ld._normalise(x, scale, bias, EPS, torch.float32)[2].to(mxu).float()
+    w1m, w2m = w1.to(mxu).float(), w2.to(mxu).float()
+    fp32 = dtype == torch.float32
+    step = 8 if fp32 else 16
+    ops = _split if fp32 else (lambda t: t)
+    acc1 = _steps(ops(y), ops(w1m), 0, y.shape[1], step, terms)
+    h = ld._apply_act(acc1 + b1, act)
+    if round_h:
+        h = h.to(mxu).float()
+    f = h.shape[1]
+    bounds = [f // 64 * i // splits * 64 for i in range(splits + 1)]
+    halves = []
+    for o0 in range(0, w2m.shape[0], 256):
+        parts = [_steps(ops(h), ops(w2m[o0:o0 + 256]), lo, hi, step, terms)
+                 for lo, hi in zip(bounds, bounds[1:])]
+        halves.append(parts[0] if splits == 1 else parts[0] + parts[1])
+    return (torch.cat(halves, dim=1) + b2).to(dtype)
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+def test_k5_wide_order_within_card_tolerance(dtype, splits):
+    """The wide rows' order at Point-E's MLP (exact GELU), one block or a cluster's two, within
+    the card's limits."""
+    args = _inputs(dtype, seed=30 + splits, c=WC, f=WF, o=WC, rows=WIDE_ROWS)
+    ref = lm._torch_ln_mlp(*args, EPS, dtype, "gelu")
+    got = _emulate_wide(*args, dtype, "gelu", splits=splits)
+    assert got.shape == ref.shape == (WIDE_ROWS, WC) and got.dtype == dtype
+    max_rel, mean_rel = _errors(got, ref)
+    assert max_rel <= K5_TOL[dtype], f"{dtype}: {max_rel:.3e} of max |ref|"
+    if dtype == torch.bfloat16:
+        assert mean_rel <= K5_MEAN, f"mean {mean_rel:.3e} of mean |ref|"
+
+
+def test_k5_wide_limits_reject_wrong_orders():
+    """fp32 products in 1xTF32 fail K5_TOL; in bf16, h kept in fp32 passes the max-error limit
+    and fails the mean-error one."""
+    args = _inputs(torch.float32, seed=40, c=WC, f=WF, o=WC, rows=WIDE_ROWS)
+    ref = lm._torch_ln_mlp(*args, EPS, torch.float32, "gelu")
+    max_rel, _ = _errors(_emulate_wide(*args, torch.float32, "gelu", terms=1), ref)
+    assert max_rel > K5_TOL[torch.float32], f"1xTF32: {max_rel:.3e} of max |ref|"
+    args = _inputs(torch.bfloat16, seed=41, c=WC, f=WF, o=WC, rows=WIDE_ROWS)
+    ref = lm._torch_ln_mlp(*args, EPS, torch.bfloat16, "gelu")
+    max_rel, mean_rel = _errors(_emulate_wide(*args, torch.bfloat16, "gelu", round_h=False), ref)
+    assert max_rel <= K5_TOL[torch.bfloat16], f"h unrounded: {max_rel:.3e} of max |ref|"
+    assert mean_rel > 10 * K5_MEAN, f"h unrounded: mean {mean_rel:.3e} of mean |ref|"

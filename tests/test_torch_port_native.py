@@ -134,19 +134,33 @@ def test_ln_dense_grid_is_one_dimensional():
 
 
 def test_whole_mlp_kernel_builds_on_the_ln_dense_loop():
+    """K5's narrow paths (C, O <= 256) on K3's loop: bf16 wgmma with h from registers, fp32
+    on K3's FMA stage, no TF32. Its wide rows (namespace ``wide``, Point-E's C = O = 512) on
+    K3-wide's panel (``ln_wide.cuh``): bf16 wgmma (fc1 from the panel, fc2 with h from
+    shared memory), the weights by the TMA through an mbarrier ring, the fp32 products in
+    3xTF32 only (every TF32 product through ``mma_3xtf32``), no atomics."""
     text = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
-    assert '#include "ln_dense_fwd.cuh"' in text and '#include "ptx.cuh"' in text
+    for header in ("ln_dense_fwd.cuh", "ln_wide.cuh", "ptx.cuh"):
+        assert f'#include "{header}"' in text, header
     code = re.sub(r"//[^\n]*", "", text)  # the code, without its comments
+    narrow, wide = code.split("namespace wide {", 1)
     # bf16: the panel and epilogue of K3's loop, wgmma from shared memory (fc1) and from
     # registers (fc2), weights by the TMA; fp32: K3's FMA stage
     for call in ("panel_start<", "epilogue_bf16<", "wgmma_m64n64k16(", "wgmma_m64n256k16_rs(",
                  "tma_load_2d(", "fma_stage_fp32<"):
-        assert call in code, call
+        assert call in narrow, call
     for banned in ("<mma.h>", "wmma::", "wmma", "tf32"):
-        assert banned not in code, banned
+        assert banned not in narrow, banned
+    for call in ("pw::panel<", "pw::wide_epilogue_bf16<", "wgmma_m64n32k16(",
+                 "wgmma_m64n256k16_ss<0, 0>(", "tma_load_2d(", "mbar_expect_tx(",
+                 "setmaxnreg_inc<", "pw::mma_3xtf32(", "pcdiff_ln::DivFast{ok}",
+                 "pcdiff_ln::DivRn()", "combine_partials("):
+        assert call in wide, call
+    for banned in ("wmma", "mma_tf32(", "atomic", "fma_stage_fp32"):
+        assert banned not in wide, banned
     ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
-    for op in ("wgmma.mma_async.sync.aligned.m64n256k16", "cp.async.bulk.tensor.2d",
-               "mbarrier.try_wait.parity", "setmaxnreg"):
+    for op in ("wgmma.mma_async.sync.aligned.m64n256k16", "wgmma.mma_async.sync.aligned.m64n32k16",
+               "cp.async.bulk.tensor.2d", "mbarrier.try_wait.parity", "setmaxnreg"):
         assert op in ptx, op
     # the exhaustive check of its fast division compares it with __fdiv_rn's
     check = (_native.CSRC_DIR / "act_check.cu").read_text()
@@ -283,9 +297,12 @@ def test_k3_wide_rows_build_on_wgmma_tma_and_3xtf32():
     """K3's wide rows (``ln_dense.cu`` namespace ``wide``): the bf16 path streams W by the TMA
     through an mbarrier ring into ``wgmma`` with a producer warpgroup (``setmaxnreg``), the
     fp32 path multiplies in 3xTF32 on ``mma.sync``; both normalise each row once (no
-    per-column-tile pass) and take the epilogue's divisions on DivFast with a DivRn retake."""
+    per-column-tile pass) and take the epilogue's divisions on DivFast with a DivRn retake.
+    The panel's normalisation, the bf16 epilogue and the TF32 split are ``ln_wide.cuh``'s,
+    which the whole-MLP kernel's wide rows share."""
     text = (_native.CSRC_DIR / "ln_dense.cu").read_text()
-    wide = re.sub(r"//[^\n]*", "", text[text.index("namespace wide {"):])
+    assert '#include "ln_wide.cuh"' in text
+    wide = re.sub(r"//[^\n]*", "", text[text.index("namespace wide {"):]) + _code("ln_wide.cuh")
     for call in ("tma_load_2d(", "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
                  "wgmma_m64k16<N>(", "setmaxnreg_inc<", "setmaxnreg_dec<", "mma_tf32(",
                  "round_tf32(", "pcdiff_ln::DivFast{ok}", "pcdiff_ln::DivRn()",
@@ -301,12 +318,15 @@ def _constant(text, name):
 
 
 def test_wide_panels_and_rings_fit_an_sm():
-    """The wide K3's resident panels and rings, and K1's ring at head dim 64, fit the 227 KB
-    of shared memory a block may take, at every width of the wide path: panels of the most of
+    """The wide K3's resident panels and rings, K5's wide rows' panel, h slots and ring (which
+    also hold a cluster partner's 64 x 512 fp32 partial tile), and K1's ring at head dim 64,
+    fit the 227 KB of shared memory a block may take, at every width of the wide path: panels
+    of the most of
     128, 64 or 32 rows whose k blocks (128 bytes a row) take at most PANEL_BYTES (bf16: 128
     rows to C = 512, 64 past it; fp32: 64 and 32) beside STAGES W boxes of BN rows."""
     text = (_native.CSRC_DIR / "ln_dense.cu").read_text()
-    stages, box, bn = (_constant(text, n) for n in ("STAGES", "BOX_BYTES", "BN"))
+    stages, bn = (_constant(text, n) for n in ("STAGES", "BN"))
+    box = _constant((_native.CSRC_DIR / "ln_wide.cuh").read_text(), "BOX_BYTES")
     panel = 128 * 1024
     assert "constexpr int PANEL_BYTES = 128 * 1024;" in text
     limit = 232448
@@ -318,6 +338,13 @@ def test_wide_panels_and_rings_fit_an_sm():
             assert (size, rows) in {(2, 128 if kext <= 512 else 64),
                                     (4, 64 if c <= 512 else 32)}, (c, size, rows)
             assert 1024 + rows * kext * size + stages * bn * box + 8 * (2 * stages + 1) <= limit
+    # K5's wide rows: a 64-row panel 512 deep, two h slots of 64 x 64, and a ring of 32 KB
+    # stages (bf16: four; fp32: two), with their barriers
+    mlp = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
+    pr, kp, fc, slot = (_constant(mlp, n) for n in ("PR", "KP", "WFC", "SLOT_BYTES"))
+    for size, stages in ((2, _constant(mlp, "B_STAGES")), (4, _constant(mlp, "F_STAGES"))):
+        assert 1024 + (pr * kp + 2 * pr * fc) * size + stages * slot + 8 * (2 * stages + 1) <= limit
+        assert pr * 128 * 4 <= pr * kp * size + 2 * pr * fc * size + stages * slot  # rank 1's partial
     k1 = (_native.CSRC_DIR / "attention_mh64.cu").read_text()
     bq, bkv, k1_stages = (_constant(k1, n) for n in ("BQ", "BKV", "STAGES"))
     part = 16 * (64 // 8 + 1) * 256  # the merge's partials: 9 float4 a consumer thread

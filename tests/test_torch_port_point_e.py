@@ -7,7 +7,8 @@ Each model is built from a preset of ``MODEL_CONFIGS`` (and the one class no pre
 ``pcdiff/core/point_e_import.py`` with every tensor nonzero (so a zero-initialised output
 projection hides nothing): the JAX side through its importer, the port through its own and,
 again, through ``params_from_flax`` of the JAX tree. The JAX side runs the graph the TPU
-runs (``set_ln_dense_fusion("on")``). With more than one head, a wrong split of the
+runs (``set_ln_dense_fusion("on")``), and the image and text pipelines' presets again in the
+fully fused configuration (``set_ln_mlp_fusion("on")`` on both sides). With more than one head, a wrong split of the
 interleaved ``c_qkv``, a wrong split scale or a wrong conditioning-token order fails
 (``test_wrong_split_scale_or_order_is_seen``). Tolerances: 1e-5 for a model, 1e-4 for the
 sampler (fp32 differences carried through the solver's steps, as
@@ -33,8 +34,10 @@ from pcdiff_torch.diffusion import _noise
 from pcdiff_torch.diffusion import sampler as tsampler
 from pcdiff_torch.diffusion.configs import DIFFUSION_CONFIGS as TDIFF
 from pcdiff_torch.diffusion.configs import diffusion_from_config as tdiff_from_config
+from pcdiff_torch.models import attention as tattn
 from pcdiff_torch.models import configs as tconfigs
 from pcdiff_torch.models import point_e as tpe
+from pcdiff_torch.ops import layer_norm as tln
 
 torch.set_num_threads(2)
 
@@ -203,6 +206,47 @@ def test_model_matches_jax(name, width, heads):
     want = jax_forward(cfg, variables, x, t, kw)
     got = port_forward(model, x, t, kw)
     assert got.shape == (B, N_CTX, cfg["output_channels"])
+    _close(got, want)
+
+
+# the presets of the image and text pipelines, whose MLPs the fully fused configuration sends
+# to the whole-MLP kernel
+FUSED_CASES = [c for c in CASES if c[0] in ("base40M", "base40M-textvec", "upsample")]
+
+
+@pytest.fixture
+def fully_fused():
+    """The fully fused configuration on both sides: each block's pre-LN MLP as one call, and
+    the port's standalone LayerNorms (``ln_pre``, ``ln_post``) on the kernel backend (on the
+    CPU, its plain version; the JAX side keeps XLA's LayerNorm, the same formula)."""
+    jattn.set_ln_mlp_fusion("on")
+    tattn.set_ln_mlp_fusion("on")
+    tln.set_layernorm_backend("kernel")
+    yield
+    jattn.set_ln_mlp_fusion("off")
+    tattn.set_ln_mlp_fusion("off")
+    tln.set_layernorm_backend("auto")
+
+
+@pytest.mark.parametrize("name,width,heads", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
+def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, heads):
+    """The tiny models' forward with the whole-MLP fusion on in both packages, one set of
+    weights; every block's MLP goes through ``fused_ln_mlp`` (the JAX side traces its XLA
+    composition of the same math off the TPU)."""
+    cfg = _config(name, width, heads)
+    sd = reference_state(cfg)
+    variables = jimport(sd)
+    model = port_model(cfg, timport(sd))
+    calls = []
+    real = tpe.fused_ln_mlp
+    monkeypatch.setattr(tpe, "fused_ln_mlp", lambda *a: calls.append(1) or real(*a))
+    x, t, kw = inputs(cfg)
+    jmod = jconfigs.model_from_config(cfg)
+    want = jax.jit(lambda v, x, t, kw: jmod.apply(v, x, t, **kw))(
+        variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()})
+    got = port_forward(model, x, t, kw)
+    assert len(calls) == cfg["layers"]
+    # fp32 on both sides; the fused MLP's sums over C and F in other orders
     _close(got, want)
 
 
