@@ -33,20 +33,12 @@
 // is carried over only by the one-pass mode, whose panels fit the SM's shared memory.
 // Ragged edges (643, 1025, 257, 255, 127 are multiples of no tile) are masked in the loop.
 //
-// Head dims: 32 (the flagship's 256 / 8) here, and 64 (Point-E's and CLIP's: 512 / 8,
-// 256 / 4, 1024 / 16, 768 / 12) in attention_mh64.cu, K1's own wgmma kernel at D = 64, except
-// under the bf16 exp switch: its two-sweep BF16_EXP mode is built here at both head dims (one
-// block an SM at D = 64 with fp32 inputs, which are rounded to bf16 through registers as they
-// are staged; two with bf16 ones). The one-pass exp mode is built at D = 32 only: at D = 64
-// the resident K and V of EXP_MAX_KEYS keys take 331 KB, and every panel of the Point-E path
-// but the vision tower's 257 keys (1026, 1281, 4096, 4353) lies past that anyway, so the
-// wrapper plans no one-pass launch at D = 64 and those panels take the two sweeps. The loop
-// streams K and V, so a panel's length has no limit here (the TPU kernel holds the whole panel
-// in VMEM).
+// Head dim 32 (the flagship's 256 / 8) only: head dim 64 (Point-E's and CLIP's: 512 / 8,
+// 256 / 4, 1024 / 16, 768 / 12) is attention_mh64.cu's, both modes. The loop streams K and V,
+// so a panel's length has no limit here (the TPU kernel holds the whole panel in VMEM).
 
 #include <cstdint>
 #include <initializer_list>
-#include <type_traits>
 
 #include "attention_fwd.cuh"
 
@@ -60,39 +52,29 @@ using pcdiff_attn::ExpLayout;
 using pcdiff_attn::Layout;
 using pcdiff_attn::Panel;
 
-constexpr int D = 32;  // the one-pass exp mode's head dim
+constexpr int D = 32;  // the head dim
 
-template <int MODE, int HD_, typename T>
-__global__ void __launch_bounds__(pcdiff_attn::THREADS,
-                                  HD_ == 32 || std::is_same<T, bf16>::value ? 2 : 1)
+template <int MODE, typename T>
+__global__ void __launch_bounds__(pcdiff_attn::THREADS, 2)
 attention_mh_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ o,
                     int nq, int nk, int heads) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const long long hd = (long long)heads * HD_;
+  const long long hd = (long long)heads * D;
   const int h = blockIdx.y, b = blockIdx.z;
-  const long long qo = (long long)b * nq * hd + h * HD_, kv = (long long)b * nk * hd + h * HD_;
+  const long long qo = (long long)b * nq * hd + h * D, kv = (long long)b * nk * hd + h * D;
   const Panel<T> p{q + qo, k + kv, v + kv, o + qo, hd, hd, hd, hd,
                    nq, nk, (int)blockIdx.x * pcdiff_attn::BQ};
-  pcdiff_attn::attention_block<MODE, HD_>(p, smem);
+  pcdiff_attn::attention_block<MODE, D>(p, smem);
 }
 
-template <int MODE, int HD_, typename T>
+template <int MODE, typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int nq, int nk,
            int heads, cudaStream_t s) {
-  constexpr int smem = Layout<HD_>::SMEM;
-  if constexpr (smem > 48 * 1024) {  // dynamic shared memory above 48 KB needs the attribute
-    static bool configured = false;
-    if (!configured) {
-      const cudaError_t e = cudaFuncSetAttribute(attention_mh_kernel<MODE, HD_, T>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 smem);
-      if (e != cudaSuccess) return (int)e;
-      configured = true;
-    }
-  }
+  constexpr int smem = Layout<D>::SMEM;
+  static_assert(smem <= 48 * 1024, "the loop's shared memory needs no attribute at D = 32");
   const dim3 grid((nq + pcdiff_attn::BQ - 1) / pcdiff_attn::BQ, heads, batch);
-  attention_mh_kernel<MODE, HD_, T><<<grid, pcdiff_attn::THREADS, smem, s>>>(
+  attention_mh_kernel<MODE, T><<<grid, pcdiff_attn::THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), nq, nk, heads);
   return (int)cudaGetLastError();
@@ -142,36 +124,20 @@ bool valid_plan(int nk, int splits, int slice) {
 
 }  // namespace
 
-// The loop's modes by input dtype: FULL and BF16_EXP at head dim 32, BF16_EXP at 64.
-template <int HD_>
-int launch_loop(const void* q, const void* k, const void* v, void* o, int batch, int nq,
-                int nk, int heads, int is_bf16, int bf16_exp, cudaStream_t s) {
-  constexpr int FULL = pcdiff_attn::FULL, EXP = pcdiff_attn::BF16_EXP;
-  if (HD_ == 64 || bf16_exp)
-    return is_bf16 ? launch<EXP, HD_, bf16>(q, k, v, o, batch, nq, nk, heads, s)
-                   : launch<EXP, HD_, float>(q, k, v, o, batch, nq, nk, heads, s);
-  if constexpr (HD_ == 32)
-    return is_bf16 ? launch<FULL, HD_, bf16>(q, k, v, o, batch, nq, nk, heads, s)
-                   : launch<FULL, HD_, float>(q, k, v, o, batch, nq, nk, heads, s);
-  else
-    return (int)cudaErrorInvalidValue;
-}
-
 // q, k, v, o: device pointers of one dtype (is_bf16 = 1: bf16, 0: fp32), 16-byte aligned;
-// head_dim is 32, or 64 with bf16_exp = 1 (the default mode at 64 is attention_mh64.cu's);
-// bf16_exp = 1 selects the bf16 exp mode, in one pass with `splits` warps of `slice` keys
-// (the wrapper's plan, taken at head dim 32 only, refused unless it covers nk with no slice
-// empty), or with splits = 0 in two sweeps; the default mode takes splits = slice = 0.
-// Returns the cudaError_t of the launch (0 on success). Launches on `stream` and does not
-// synchronise.
+// head_dim is 32 (64 is attention_mh64.cu's); bf16_exp = 1 selects the bf16 exp mode, in one
+// pass with `splits` warps of `slice` keys (the wrapper's plan, refused unless it covers nk
+// with no slice empty), or with splits = 0 in two sweeps; the default mode takes
+// splits = slice = 0. Returns the cudaError_t of the launch (0 on success). Launches on
+// `stream` and does not synchronise.
 extern "C" int pcdiff_attention_mh_fwd(const void* q, const void* k, const void* v, void* o,
                                        int batch, int nq, int nk, int heads, int head_dim,
                                        int is_bf16, int bf16_exp, int splits, int slice,
                                        void* stream) {
-  if ((head_dim != 32 && !(head_dim == 64 && bf16_exp)) || batch <= 0 || nq <= 0 || nk <= 0 ||
-      heads <= 0 || batch > 65535 || heads > 65535)
+  if (head_dim != D || batch <= 0 || nq <= 0 || nk <= 0 || heads <= 0 || batch > 65535 ||
+      heads > 65535)
     return (int)cudaErrorInvalidValue;
-  if ((splits || slice) && !(bf16_exp && head_dim == D && valid_plan(nk, splits, slice)))
+  if ((splits || slice) && !(bf16_exp && valid_plan(nk, splits, slice)))
     return (int)cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
     if (reinterpret_cast<std::uintptr_t>(ptr) % 16) return (int)cudaErrorMisalignedAddress;
@@ -179,7 +145,10 @@ extern "C" int pcdiff_attention_mh_fwd(const void* q, const void* k, const void*
   if (bf16_exp && splits)
     return is_bf16 ? launch_exp<bf16>(q, k, v, o, batch, nq, nk, heads, splits, slice, s)
                    : launch_exp<float>(q, k, v, o, batch, nq, nk, heads, splits, slice, s);
-  if (head_dim == 64)
-    return launch_loop<64>(q, k, v, o, batch, nq, nk, heads, is_bf16, bf16_exp, s);
-  return launch_loop<32>(q, k, v, o, batch, nq, nk, heads, is_bf16, bf16_exp, s);
+  constexpr int FULL = pcdiff_attn::FULL, EXP = pcdiff_attn::BF16_EXP;
+  if (bf16_exp)
+    return is_bf16 ? launch<EXP, bf16>(q, k, v, o, batch, nq, nk, heads, s)
+                   : launch<EXP, float>(q, k, v, o, batch, nq, nk, heads, s);
+  return is_bf16 ? launch<FULL, bf16>(q, k, v, o, batch, nq, nk, heads, s)
+                 : launch<FULL, float>(q, k, v, o, batch, nq, nk, heads, s);
 }

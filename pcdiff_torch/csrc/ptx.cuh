@@ -429,6 +429,14 @@ __device__ __forceinline__ unsigned cluster_rank() {
 __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
+// The same barrier in two halves, for a thread with work of its own between them (a producer
+// whose loads the cluster's consumers wait on before they arrive).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
 // 16 bytes of block `rank`'s shared memory at the offset of `p` in this block's.
 __device__ __forceinline__ float4 ld_peer_f4(const void* p, unsigned rank) {
   unsigned remote;

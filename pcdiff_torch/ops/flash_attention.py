@@ -23,10 +23,11 @@ the TPU, so that the fp32 model holds to the JAX model on the CPU.
 :func:`set_attention_softmax_dtype` is the JAX package's switch of the same name (off by
 default): under ``"bfloat16"`` the forward computes the exponentials as the TPU kernel's
 bf16 exp panel does, t = bf16(s - rowmax(s)) with s in fp32, p = bf16(exp(t)), the row sum
-of the rounded p in fp32, O = p V with bf16 operands and fp32 accumulation, out = O / l. K1
-runs it in one pass over the keys where :func:`_exp_plan` splits them over the warps of a
-block (every panel of the sampler and the train step), else in two sweeps; the backward
-(K2) ignores the switch, as the JAX backward does.
+of the rounded p in fp32, O = p V with bf16 operands and fp32 accumulation, out = O / l. At
+head dim 32 K1 runs it in one pass over the keys where :func:`_exp_plan` splits them over
+the warps of a block (every panel of the sampler and the train step), else in two sweeps; at
+head dim 64 ``attention_mh64.cu`` runs it in two sweeps (the first for the row max alone);
+the backward (K2) ignores the switch, as the JAX backward does.
 
 Each kernel has a domain, a pure check of the shapes and dtypes it is built for
 (:func:`_k1_domain`: head dim 32 or 64; :func:`_k2_domain`: head dim 32;
@@ -73,7 +74,7 @@ _BACKEND = "kernel"  # kernel | plain
 _SOFTMAX_DTYPE = "float32"  # float32 | bfloat16: the forward's exponentials (K1)
 _K1_HEAD_DIMS = (32, 64)  # K1's head dims: the flagship's 256 / 8, and Point-E's and CLIP's
 _K2_HEAD_DIM = 32  # K2's head dim (the flagship's)
-_EXP_HEAD_DIM = 32  # the head dim of K1's one-pass exp mode
+_EXP_HEAD_DIM = 32  # the head dim of K1's one-pass exp mode (attention_mh.cu's head dim)
 
 launches = 0  # forward kernel launches since the last reset (chip_smoke.py resets it)
 bwd_launches = 0  # backward kernel launches, likewise
@@ -88,10 +89,11 @@ _K7_QUERY_TILE = 64  # queries a K7 block, as csrc/attention.cu checks its grid 
 _EXP_WARPS = 16
 _EXP_SLICE = 128
 _EXP_MAX_KEYS = 1152
-# K1 at head dim 64 (csrc/attention_mh64.cu): 128 queries a block, 128-key tiles, and up to 4
-# blocks (a cluster) splitting a query tile's keys. A block's fixed work (its query tile, the
-# stores) weighs ~1.6 key tiles, and a split block's cluster barriers and merge ~2 more
-# (fitted to the Point-E path's panels timed with and without splits on an H100)
+# K1 at head dim 64 (csrc/attention_mh64.cu, both modes): 128 queries a block, 128-key tiles,
+# and up to 4 blocks (a cluster) splitting a query tile's keys. A block's fixed work (its
+# query tile, the stores) weighs ~1.6 key tiles, and a split block's cluster barriers and
+# merge ~2 more (fitted to the Point-E path's panels timed with and without splits on an
+# H100, default mode; the exp mode takes the same plan)
 _K1_64_BQ = 128
 _K1_64_BKV = 128
 _K1_64_MAX_SPLITS = 4
@@ -254,7 +256,7 @@ def _kernel64_fn():
     global _fn64
     if _fn64 is None:
         fn = _native.library("attention_mh64").pcdiff_attention_mh64_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn64 = fn
     return _fn64
@@ -295,10 +297,11 @@ def _k1_64_splits(panels: int, nq: int, nk: int, capacity: tuple) -> int:
     return min(cost, key=lambda s: (cost[s], s))
 
 
-def _launch(q, k, v, num_heads: int):
-    """K1 on the card: at head dim 64 in the default mode ``csrc/attention_mh64.cu`` (fp32
-    inputs first rounded to bf16 copies in a scratch tensor, by the same call), else
-    ``csrc/attention_mh.cu``. One count a call, whatever its launches."""
+def _launch(q, k, v, num_heads: int, splits: int = None):
+    """K1 on the card: at head dim 64 ``csrc/attention_mh64.cu`` in either mode (fp32 inputs
+    first rounded to bf16 copies in a scratch tensor, by the same call), with ``splits``
+    blocks a query tile (None: :func:`_k1_64_splits`' plan), else ``csrc/attention_mh.cu``.
+    One count a call, whatever its launches."""
     global launches
     _check(q, k, v, num_heads)
     b, nq, hd = q.shape
@@ -307,15 +310,16 @@ def _launch(q, k, v, num_heads: int):
     is_bf16 = int(q.dtype == torch.bfloat16)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        if d == 64 and not bf16_exp:
+        if d == 64:
             scratch = (None if is_bf16 else
                        torch.empty(q.numel() + 2 * k.numel(), dtype=torch.bfloat16,
                                    device=q.device))
-            splits = _k1_64_splits(b * num_heads, nq, nk, _k1_64_capacity(q.device.index))
+            if splits is None:
+                splits = _k1_64_splits(b * num_heads, nq, nk, _k1_64_capacity(q.device.index))
             err = _kernel64_fn()(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), b, nq, nk, num_heads,
-                is_bf16, splits, _native.stream(q.device))
+                is_bf16, int(bf16_exp), splits, _native.stream(q.device))
         else:
             splits, slice_ = (_exp_plan(nk, d) or (0, 0)) if bf16_exp else (0, 0)
             err = _kernel_fn()(

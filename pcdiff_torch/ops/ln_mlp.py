@@ -21,7 +21,8 @@ output dtype is the product dtype: bf16 for a bf16 output, fp32 for fp32), fc2 t
 operands in the product dtype with fp32 accumulation, adds an fp32 ``b2`` and casts once.
 For a bf16 output the kernel takes both weights in bf16, cast once per parameter version by
 K3's cache (:func:`pcdiff_torch.ops.ln_dense._product_weight`), so no block converts a
-weight.
+weight. The wide rows' fp32 path multiplies in 3xTF32 and takes each weight's TF32 parts,
+split once per parameter version (:func:`_split_weight`), so no warp splits a weight either.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import _native
 from . import ln_dense as ld
@@ -38,6 +40,9 @@ __all__ = ["fused_ln_mlp", "launches"]
 _MAX_C = 256
 _MAX_O = 256
 _MAX_C_WIDE = 512  # the wide rows: 256 < C = O <= 512, C % 128 == 0, F = 4 C (Point-E's MLP)
+# the TF32 parts of fp32 weights for the wide rows (:func:`_split_weight`), held while the
+# weight lives
+_W_TF32 = WeakIdKeyDictionary()
 
 launches = 0  # K5 launches since the last reset (chip_smoke.py resets it)
 _fn = None
@@ -119,12 +124,40 @@ def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
     return rows, c, f, o
 
 
+def _tf32_parts(w):
+    """``[2, *w.shape]``: hi = w rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, by the bits as ``ptx.cuh``'s ``round_tf32`` takes them) and lo = (w - hi) rounded
+    likewise, the parts ``ln_wide.cuh``'s ``split_tf32`` gives, in fp32's layout."""
+    def round_tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    w = w.detach().float().contiguous()
+    hi = round_tf32(w)
+    return torch.stack([hi, round_tf32(w - hi)])
+
+
+def _split_weight(w):
+    """``w``'s TF32 parts (:func:`_tf32_parts`) for the wide rows' fp32 path, kept in
+    ``_W_TF32`` and taken again while the tensor's storage and version counter are
+    unchanged, as :func:`pcdiff_torch.ops.ln_dense._product_weight` keeps its bf16 copies."""
+    if w.is_inference():
+        return _tf32_parts(w)
+    key = (w.data_ptr(), w._version)
+    cached = _W_TF32.get(w)
+    if cached is None or cached[0] != key:
+        cached = (key, _tf32_parts(w))
+        _W_TF32[w] = cached
+    return cached[1]
+
+
 def _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
     global launches
     rows, c, f, o = _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act)
     out = torch.empty(x.shape[:-1] + (o,), dtype=out_dtype, device=x.device)
     if out_dtype == torch.bfloat16:  # the kernel takes the product dtype's weights
         w1, w2 = ld._product_weight(w1), ld._product_weight(w2)
+    elif _wide(c, f, o):  # and the wide rows' fp32 path their TF32 parts
+        w1, w2 = _split_weight(w1), _split_weight(w2)
     with torch.cuda.device(x.device):
         err = _kernel_fn()(
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),

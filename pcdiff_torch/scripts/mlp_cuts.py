@@ -29,6 +29,7 @@ import torch
 
 from ..ops import _native
 from ..ops import ln_dense as ld
+from ..ops import ln_mlp as lm
 
 # the kernel's pieces, as they stand in csrc/ln_mlp.cu
 _FC1 = ("      wgmma_m64n64k16(acc1, sw128_desc(a_wg + kb * (BM * 64) + 16 * ks),\n"
@@ -47,18 +48,20 @@ _W_FC1 = ("      wgmma_m64n32k16(acc1, da + (kb * PR * 64 * 2 + 32 * ks) / 16,\n
           "                      db + (kb * 64 * 64 * 2 + 32 * ks) / 16, !first || kb > 0 || ks > 0);")
 _W_FC2 = "    wgmma_m64n256k16_ss<0, 0>(acc2, da + 2 * kk, db + 2 * kk, 1);"
 _W_GELU = ("    hidden_pairs<ACT>(acc, p, b1, hp, pcdiff_ln::DivFast{ok});\n"
-           "    if (!ok) hidden_pairs<ACT>(acc, p, b1, hp, pcdiff_ln::DivRn());")
+           "    if (ACT != ACT_GELU && !ok) hidden_pairs<ACT>(acc, p, b1, hp, "
+           "pcdiff_ln::DivRn());")
 _W_FILL = "    mbar_expect_tx(&full[s % STAGES], SLOT_BYTES);\n    return &full[s % STAGES];"
 _W_W1 = ("        tma_load_2d(dst + kb * 64 * 64, &a.w1_map, bar, 256 * j + 64 * kb, "
          "(sh.c0 + t) * WFC);")
 _W_W2 = "      tma_load_2d(ring.slot(s), &a.w2_map, ring.fill(s), (sh.c0 + t) * WFC, 256 * h);"
-_W_FP32_W1 = "        tma_load_2d(dst + kb * 64 * 32, &a.w1_map, bar, 128 * j + 32 * kb, f0);"
-_W_FP32_W2 = ("      tma_load_2d(ring.slot(s), &a.w2_map, ring.fill(s), f0 + 32 * (q / 2), "
-              "256 * (q % 2));")
+_W_FP32_W1 = ("          tma_load_2d(dst + (2 * p + kb) * 64 * 32, p ? &a.w1lo_map : &a.w1_map, "
+              "bar,\n                      64 * j + 32 * kb, f0);")
+_W_FP32_W2 = ("        tma_load_2d(dst + p * W2_ROWS * 32, p ? &a.w2lo_map : &a.w2_map, bar, "
+              "f0 + 32 * (q / 4),\n                    W2_ROWS * (q % 4));")
 _W_FP32_FC1 = "        pw::mma_3xtf32(acc1[nt], ahi, alo, bhi, blo);"
-_W_FP32_FC2 = "      pw::mma_3xtf32(acc2[nt], ahi, alo, bhi, blo);"
+_W_FP32_FC2 = "      pw::mma_3xtf32(acc2[8 * Q + nt], ahi, alo, bhi, blo);"
 _W_FP32_ACT = ("  act_frags<ACT>(acc, b, v, pcdiff_ln::DivFast{ok});\n"
-               "  if (!ok) act_frags<ACT>(acc, b, v, pcdiff_ln::DivRn());")
+               "  if (ACT != ACT_GELU && !ok) act_frags<ACT>(acc, b, v, pcdiff_ln::DivRn());")
 # every stage completes without a copy: the consumers multiply stale slots
 _W_NO_STREAM = [(_W_FILL, "    mbar_arrive(&full[s % STAGES]);\n    return &full[s % STAGES];")]
 
@@ -83,7 +86,8 @@ CUTS = {
     ("wide bf16", "no fc1"): [(_W_FC1, "      ;")],
     ("wide bf16", "no fc2"): [(_W_FC2, "    ;")],
     ("wide fp32", "no weight stream"): _W_NO_STREAM + [
-        (_W_FP32_W1, "        (void)bar, (void)dst;"), (_W_FP32_W2, "      ring.fill(s);")],
+        (_W_FP32_W1, "          (void)bar, (void)dst;"),
+        (_W_FP32_W2, "        (void)bar, (void)dst;")],
     ("wide fp32", "no GELU"): [(_W_FP32_ACT, "  act_frags<ACT_NONE>(acc, b, v, pcdiff_ln::DivRn());")],
     ("wide fp32", "no fc1"): [(_W_FP32_FC1, "        (void)bhi, (void)blo;")],
     ("wide fp32", "no fc2"): [(_W_FP32_FC2, "      (void)bhi, (void)blo;")],
@@ -184,6 +188,8 @@ def run(iters: int = 20) -> list:
             x, scale, bias, w1, b1, w2, b2 = _inputs(g, b, n, dtype, c, f, o)
             if dtype == torch.bfloat16:
                 w1, w2 = ld._product_weight(w1), ld._product_weight(w2)
+            elif path == "wide fp32":  # the wide fp32 path takes the weights' TF32 parts
+                w1, w2 = lm._split_weight(w1), lm._split_weight(w2)
             out = torch.empty(b * n, o, dtype=dtype, device=x.device)
             for a in (act, None) if c == 256 else (act,):
                 def call(fn, code=ld._ACT_CODES[a]):

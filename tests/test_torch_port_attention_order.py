@@ -253,8 +253,8 @@ def test_loop_order_within_card_tolerance(site, kernel):
 
 
 # K1 at head dim 64, the Point-E path's: (rows, Nq, Nk, heads) of the ViT-L/14 tower, base40M
-# (CFG's 2B rows) and base40M-textvec; the default mode runs csrc/attention_mh64.cu, whose
-# key tiles are 128 wide; the bf16 exp mode takes the two sweeps of the shared loop
+# (CFG's 2B rows) and base40M-textvec; both modes run csrc/attention_mh64.cu, whose key tiles
+# are 128 wide
 SHAPES_D64 = {"vision": (1, 257, 257, 16), "base40M": (2, 1281, 1281, 8),
               "textvec": (1, 1026, 1026, 8)}
 K1_TILE_D64 = 128  # attention_mh64.cu's BKV
@@ -291,10 +291,54 @@ def _emulate_k1_split(q, k, v, splits, tile=K1_TILE_D64):
     return o * (1.0 / l)
 
 
+def _ranks(nk, splits, tile=K1_TILE_D64):
+    """The key ranges [a, b) of a cluster's blocks, in rank order: block r takes key tiles
+    [n r / splits, n (r + 1) / splits) of the panel's n tiles."""
+    ntiles = -(-nk // tile)
+    return [(tile * (ntiles * r // splits), min(nk, tile * (ntiles * (r + 1) // splits)))
+            for r in range(splits)]
+
+
+def _emulate_k1_bf16_exp_64(q, k, v, splits=1, round_t=True, round_p=True,
+                            tile=K1_TILE_D64):
+    """K1's bf16 exp mode at head dim 64 (``attention_mh64.cu``'s EXP instantiation): each
+    block of the cluster sweeps its key tiles once for S and the row max alone; the blocks
+    trade their maxes, so each takes the panel's final max; then each sweeps its tiles again,
+    t = bf16(s - m), p = bf16(exp2(t log2e)) with the product rounded to fp32 once, a partial
+    fp32 sum of the rounded p and a partial O = p V, with no rescale; rank 0 adds the
+    partials in rank order and divides by the sum after PV. ``round_t`` / ``round_p`` False
+    drop a rounding (a faulty kernel, for the mean limit's test)."""
+    ranges = _ranks(k.shape[-2], splits, tile)
+    maxes = []
+    for a, b in ranges:
+        m_r = torch.full(q.shape[:-1] + (1,), -math.inf)
+        for k0 in range(a, b, tile):
+            s = q @ k[..., k0:min(k0 + tile, b), :].transpose(-1, -2)
+            m_r = torch.maximum(m_r, s.amax(-1, keepdim=True))
+        maxes.append(m_r)
+    m = torch.stack(maxes).amax(0)  # the trade: every rank's max
+    o, l = 0.0, 0.0
+    for a, b in ranges:
+        o_r = torch.zeros(q.shape)
+        l_r = torch.zeros(q.shape[:-1] + (1,))
+        for k0 in range(a, b, tile):
+            s = q @ k[..., k0:min(k0 + tile, b), :].transpose(-1, -2)
+            t = (s - m).bfloat16().float() if round_t else s - m
+            p = torch.exp2(t * LOG2E)
+            p = p.bfloat16().float() if round_p else p
+            l_r = l_r + p.sum(-1, keepdim=True)
+            o_r = o_r + p @ v[..., k0:min(k0 + tile, b), :]
+        o, l = o + o_r, l + l_r
+    return o * (1.0 / l)
+
+
 K1_ORDERS_D64 = {"K1": lambda q, k, v: _emulate_k1(q, k, v, tile=K1_TILE_D64),
-                 "K1 bf16 exp": _emulate_k1_bf16_exp,
+                 "K1 bf16 exp": _emulate_k1_bf16_exp_64,
                  "K1 2 splits": lambda q, k, v: _emulate_k1_split(q, k, v, 2),
-                 "K1 3 splits": lambda q, k, v: _emulate_k1_split(q, k, v, 3)}
+                 "K1 3 splits": lambda q, k, v: _emulate_k1_split(q, k, v, 3),
+                 "K1 bf16 exp 2 splits": lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, 2),
+                 "K1 bf16 exp 3 splits": lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, 3),
+                 "K1 bf16 exp 4 splits": lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, 4)}
 
 
 @pytest.mark.parametrize("kernel", list(K1_ORDERS_D64))
@@ -307,7 +351,7 @@ def test_k1_order_at_head_dim_64_within_card_tolerance(site, kernel):
                          * (2 / math.sqrt(64))).bfloat16()
     k, v = (torch.from_numpy(rng.standard_normal((rows, nk, heads * 64), dtype=np.float32)
                              ).bfloat16() for _ in range(2))
-    exp = torch.bfloat16 if kernel == "K1 bf16 exp" else torch.float32
+    exp = torch.bfloat16 if kernel.startswith("K1 bf16 exp") else torch.float32
     ref = fa._torch_attention_mh(q, k, v, heads, mxu_dtype=torch.bfloat16,
                                  exp_dtype=exp).float()
     split = (t.float().reshape(rows, t.shape[1], heads, 64).transpose(1, 2) for t in (q, k, v))
@@ -378,6 +422,40 @@ def test_bf16_exp_mean_limit_tells_the_roundings(site, variant):
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     mean = (got - ref).abs().mean().item()
     assert (mean <= ATTN_EXP_MEAN) is sound, f"{variant} {site}: mean abs error {mean:.3e}"
+
+
+VARIANTS_D64 = {  # name: (the order, whether it is the mode's)
+    "bf16 exp": (_emulate_k1_bf16_exp_64, True),
+    "bf16 exp 4 splits": (lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, 4), True),
+    "s - m not rounded": (lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, round_t=False),
+                          False),
+    "exp not rounded": (lambda q, k, v: _emulate_k1_bf16_exp_64(q, k, v, round_p=False),
+                        False),
+    "default mode": (lambda q, k, v: _emulate_k1(q, k, v, tile=K1_TILE_D64), False),
+}
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS_D64))
+def test_bf16_exp_mean_limit_tells_the_roundings_at_head_dim_64(variant):
+    """fp32 inputs at the textvec panel, as phase 20 of chip_smoke.py reads the head-dim-64
+    exp mode: its order, unsplit and over a cluster of 4, keeps its mean error against the
+    plain version under ATTN_EXP_MEAN, and an order without one of its roundings, or K1's
+    default mode (phase 20's control), reads above it."""
+    rows, nq, nk, heads = SHAPES_D64["textvec"]
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.standard_normal((rows, nq, heads * 64), dtype=np.float32)
+                         * (2 / math.sqrt(64)))
+    k, v = (torch.from_numpy(rng.standard_normal((rows, nk, heads * 64), dtype=np.float32))
+            for _ in range(2))
+    ref = fa._torch_attention_mh(q, k, v, heads, mxu_dtype=torch.bfloat16,
+                                 exp_dtype=torch.bfloat16)
+    emulate, sound = VARIANTS_D64[variant]
+    split = (t.bfloat16().float().reshape(rows, t.shape[1], heads, 64).transpose(1, 2)
+             for t in (q, k, v))
+    got = fa._fold(emulate(*split), q)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    mean = (got - ref).abs().mean().item()
+    assert (mean <= ATTN_EXP_MEAN) is sound, f"{variant} (D = 64): mean abs error {mean:.3e}"
 
 
 # Every key count the paths give K1 (the backbone's 643 and 1024, the encoders' 1025, 257, 256,

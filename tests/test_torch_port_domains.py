@@ -270,16 +270,18 @@ H100_CLUSTERS = (132, 66, 39, 30)  # clusters of 1-4 one-block-an-SM blocks an H
     ("bfloat16", 643, 8, (32, 1, 6, 112)),   # one pass: 6 warps of 112 keys, the last 83
     ("bfloat16", 1025, 8, (32, 1, 9, 128)),  # 9 warps of 128 keys, the last 1
     ("bfloat16", 4000, 8, (32, 1, 0, 0)),    # past 1152 keys: the two-sweep loop
-    ("float32", 1281, 4, ("attention_mh64", 4, 0, 4)),  # head dim 64: its own kernel, with
-                                                          # a scratch for the bf16 copies; 4
-                                                          # query tiles: keys split over 4
-    ("bfloat16", 257, 4, (64, 1, 0, 0)),     # head dim 64: always the two sweeps
+    ("float32", 1281, 4, ("attention_mh64", 4, 0, 0, 4)),  # head dim 64: its own kernel,
+                                                             # with a scratch for the bf16
+                                                             # copies; 4 query tiles: keys
+                                                             # split over 4
+    ("bfloat16", 257, 4, ("attention_mh64", 4, 0, 1, 1)),  # and its exp mode, unsplit
+    ("bfloat16", 1281, 4, ("attention_mh64", 4, 0, 1, 4)),  # the exp mode split over 4
 ])
 def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, heads, want):
     """K1's launch passes (head_dim, bf16_exp, splits, slice) from ``fa._exp_plan``; the
-    kernel is stood in for by a function that records them. The default mode at head dim 64
-    launches ``attention_mh64.cu`` instead, with (heads, is_bf16, splits) on an H100's
-    cluster capacity."""
+    kernel is stood in for by a function that records them. Head dim 64 launches
+    ``attention_mh64.cu`` instead, in either mode and never ``attention_mh.cu``, with (heads,
+    is_bf16, bf16_exp, splits) on an H100's cluster capacity."""
     seen = []
 
     def kernel(*args):
@@ -288,7 +290,7 @@ def test_k1_launch_hands_the_kernel_its_exp_plan(monkeypatch, softmax, nk, heads
 
     def kernel64(*args):
         assert args[4] is not None  # fp32 inputs: the scratch of their bf16 copies
-        seen.append(("attention_mh64",) + args[8:11])
+        seen.append(("attention_mh64",) + args[8:12])
         return 0
 
     monkeypatch.setattr(fa, "_kernel_fn", lambda: kernel)
@@ -359,6 +361,47 @@ def test_ln_mlp_bf16_launch_takes_the_cached_weight_copies(monkeypatch):
     launch(torch.float32)  # the fp32 path reads the fp32 weights
     assert seen[3] == (w1.data_ptr(), w2.data_ptr())
     assert lm.launches == 4
+
+
+def test_ln_mlp_wide_fp32_launch_takes_the_split_weights(monkeypatch):
+    """K5's wide rows in fp32 hand the kernel each weight's TF32 parts ([2, ...]: hi, lo) from
+    ``lm._split_weight``'s cache: split on the first call, the same parts on the second, split
+    again after an in-place update; the parts are ``round_tf32`` of w and of w - hi, and sum
+    back to w within fp32's rounding. The kernel is stood in for by a recording function."""
+    seen = []
+
+    def kernel(*args):
+        seen.append((args[3], args[5]))  # w1, w2
+        return 0
+
+    monkeypatch.setattr(lm, "_kernel_fn", lambda: kernel)
+    monkeypatch.setattr(lm._native, "stream", lambda device: 0)
+    monkeypatch.setattr(lm.torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(lm, "launches", 0)
+    g = torch.Generator().manual_seed(4)
+    w1 = torch.nn.Parameter(torch.randn(1536, 384, generator=g) / 20)
+    w2 = torch.nn.Parameter(torch.randn(384, 1536, generator=g) / 40)
+    x = torch.randn(3, 384, generator=g)
+
+    def launch():
+        return lm._launch(x, torch.ones(384), torch.zeros(384), w1, torch.zeros(1536), w2,
+                          torch.zeros(384), 1e-5, torch.float32, "gelu")
+
+    launch()
+    p1, p2 = lm._W_TF32[w1][1], lm._W_TF32[w2][1]
+    assert seen[0] == (p1.data_ptr(), p2.data_ptr())
+    for w, parts in ((w1, p1), (w2, p2)):
+        assert parts.shape == (2,) + w.shape and parts.is_contiguous()
+        assert (parts.view(torch.int32) & 0x1FFF).eq(0).all()  # both parts in TF32
+        assert (parts[0] + parts[1] - w.detach()).abs().max() <= 2 ** -20 * w.abs().max()
+    launch()
+    assert seen[1] == seen[0] and lm._W_TF32[w1][1] is p1
+    with torch.no_grad():
+        w2.add_(1.0)
+    launch()
+    assert lm._W_TF32[w2][1] is not p2 and seen[2] == (p1.data_ptr(),
+                                                         lm._W_TF32[w2][1].data_ptr())
+    assert lm.launches == 3
 
 
 def test_product_weight_follows_an_adamw_step():

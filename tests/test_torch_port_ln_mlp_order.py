@@ -186,9 +186,34 @@ def _steps(a, b, lo, hi, step, terms):
     return out
 
 
+_ERF_P = (0.0034082910107109506, 0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_Q = (0.000023547966471313185, 0.0010179625278914885, 0.014070470171167667,
+          0.11098505178285362, 0.49746925110067538, 1.0)
+
+
+def _gelu_fma(v):
+    """The wide rows' exact GELU (``ln_mlp.cu`` ``gelu_fma``): XLA's erf rational with
+    its Horner steps fused (each multiply-add rounded once, as ``fmaf``), the quotient taken
+    as one fp32 division (the kernel's ``__fdividef`` is within two ulps of it)."""
+    def fma(a, b, c):
+        return (a.double() * b.double() + c).float()
+
+    x = (v * 0.70710678118654752).clamp(-4.0, 4.0)
+    x2 = x * x
+    p = torch.full_like(x2, 0.00022905065861350646)
+    for c in _ERF_P:
+        p = fma(p, x2, c)
+    q = torch.full_like(x2, -1.1791602954361697e-7)
+    for c in _ERF_Q:
+        q = fma(q, x2, c)
+    half = 0.5 * v
+    return fma(half, (x * p) / q, half)
+
+
 def _emulate_wide(x, scale, bias, w1, b1, w2, b2, dtype, act, splits=1, round_h=True, terms=3):
     """The wide rows' order: y rounded to the product dtype; fc1 per k step (the F chunks
-    change no element's sum); b1 and the activation in fp32; h rounded; fc2 per O half (256
+    change no element's sum); b1 and the activation in fp32 (the exact GELU on FMAs,
+    :func:`_gelu_fma`); h rounded; fc2 per O half (256
     columns: a warpgroup's or four warps' share), its k steps over F in order, in ``splits``
     partial tiles (a cluster's two blocks, each half of F's chunks) added in fp32; b2, one
     cast. fp32 products in 3xTF32."""
@@ -199,7 +224,7 @@ def _emulate_wide(x, scale, bias, w1, b1, w2, b2, dtype, act, splits=1, round_h=
     step = 8 if fp32 else 16
     ops = _split if fp32 else (lambda t: t)
     acc1 = _steps(ops(y), ops(w1m), 0, y.shape[1], step, terms)
-    h = ld._apply_act(acc1 + b1, act)
+    h = _gelu_fma(acc1 + b1) if act == "gelu" else ld._apply_act(acc1 + b1, act)
     if round_h:
         h = h.to(mxu).float()
     f = h.shape[1]

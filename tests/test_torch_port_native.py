@@ -137,8 +137,9 @@ def test_whole_mlp_kernel_builds_on_the_ln_dense_loop():
     """K5's narrow paths (C, O <= 256) on K3's loop: bf16 wgmma with h from registers, fp32
     on K3's FMA stage, no TF32. Its wide rows (namespace ``wide``, Point-E's C = O = 512) on
     K3-wide's panel (``ln_wide.cuh``): bf16 wgmma (fc1 from the panel, fc2 with h from
-    shared memory), the weights by the TMA through an mbarrier ring, the fp32 products in
-    3xTF32 only (every TF32 product through ``mma_3xtf32``), no atomics."""
+    shared memory, the exact GELU on FMAs), the weights by the TMA through an mbarrier ring,
+    the fp32 products in 3xTF32 only (every TF32 product through ``mma_3xtf32``) on weights
+    split into their TF32 parts once, by the wrapper, not by the warps; no atomics."""
     text = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
     for header in ("ln_dense_fwd.cuh", "ln_wide.cuh", "ptx.cuh"):
         assert f'#include "{header}"' in text, header
@@ -153,10 +154,10 @@ def test_whole_mlp_kernel_builds_on_the_ln_dense_loop():
         assert banned not in narrow, banned
     for call in ("pw::panel<", "pw::wide_epilogue_bf16<", "wgmma_m64n32k16(",
                  "wgmma_m64n256k16_ss<0, 0>(", "tma_load_2d(", "mbar_expect_tx(",
-                 "setmaxnreg_inc<", "pw::mma_3xtf32(", "pcdiff_ln::DivFast{ok}",
-                 "pcdiff_ln::DivRn()", "combine_partials("):
+                 "setmaxnreg_inc<", "pw::mma_3xtf32(", "b_frag_parts<", "gelu_fma(",
+                 "pcdiff_ln::DivFast{ok}", "pcdiff_ln::DivRn()", "combine_partials("):
         assert call in wide, call
-    for banned in ("wmma", "mma_tf32(", "atomic", "fma_stage_fp32"):
+    for banned in ("wmma", "mma_tf32(", "atomic", "fma_stage_fp32", "b_frag_tf32("):
         assert banned not in wide, banned
     ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
     for op in ("wgmma.mma_async.sync.aligned.m64n256k16", "wgmma.mma_async.sync.aligned.m64n32k16",
@@ -279,8 +280,10 @@ def _code(name):
 def test_k1_head_dim_64_builds_on_wgmma_tma_and_mbarriers():
     """K1 at head dim 64 (``attention_mh64.cu``): a producer warpgroup's TMA loads into an
     mbarrier ring, S = Q K^T and P V on ``wgmma`` (P from registers, V MN-major), registers
-    moved to the consumers by ``setmaxnreg``; no ``mma.sync``, ``cp.async`` or atomics; the
-    shared loop keeps only the bf16 exp mode at head dim 64."""
+    moved to the consumers by ``setmaxnreg``; no ``mma.sync``, ``cp.async`` or atomics. It
+    holds the bf16 exp mode too, as a template parameter (a first sweep for the row max, the
+    maxes traded over the cluster, the two roundings against it), and the shared loop
+    (``attention_mh.cu``) builds no head-dim-64 mode."""
     code = _code("attention_mh64.cu")
     for call in ("tma_load_3d(", "mbar_wait(", "mbar_arrive(", "mbar_expect_tx(",
                  "wgmma_m64n128k16(", "wgmma_m64n64k16_rs<1>(", "sw128_desc_mn(",
@@ -288,9 +291,14 @@ def test_k1_head_dim_64_builds_on_wgmma_tma_and_mbarriers():
         assert call in code, call
     for banned in ("mma_bf16(", "cp_async_16(", "atomic", "attention_fwd.cuh"):
         assert banned not in code, banned
+    assert "template <typename TO, bool EXP>" in code
+    for call in ("launch<float, true>(", "launch<bf16, true>(", "trade_max(", "cluster_arrive(",
+                 "pack_bf16(ex2(bf16_lo(t) * LOG2E), ex2(bf16_hi(t) * LOG2E))"):
+        assert call in code, call
     mh = _code("attention_mh.cu")
-    assert "launch<FULL, HD_" in mh and "if constexpr (HD_ == 32)" in mh
-    assert "head_dim == 64 && bf16_exp" in mh
+    assert "launch<FULL, " in mh and "launch<EXP, " in mh
+    for gone in ("launch_loop", "HD_", "head_dim == 64"):
+        assert gone not in mh, gone
 
 
 def test_k3_wide_rows_build_on_wgmma_tma_and_3xtf32():
@@ -347,7 +355,8 @@ def test_wide_panels_and_rings_fit_an_sm():
         assert pr * 128 * 4 <= pr * kp * size + 2 * pr * fc * size + stages * slot  # rank 1's partial
     k1 = (_native.CSRC_DIR / "attention_mh64.cu").read_text()
     bq, bkv, k1_stages = (_constant(k1, n) for n in ("BQ", "BKV", "STAGES"))
-    part = 16 * (64 // 8 + 1) * 256  # the merge's partials: 9 float4 a consumer thread
+    part = 16 * (64 // 8 + 2) * 256  # the merge's partials and the exp mode's maxes: 10
+                                     # float4 a consumer thread
     assert 1024 + 2 * 64 * (bq + 2 * k1_stages * bkv) + part + 8 * (2 * k1_stages + 1) <= limit
 
 

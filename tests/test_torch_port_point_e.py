@@ -27,6 +27,7 @@ from pcdiff.diffusion import sampler as jsampler
 from pcdiff.diffusion.configs import DIFFUSION_CONFIGS as JDIFF
 from pcdiff.diffusion.configs import diffusion_from_config as jdiff_from_config
 from pcdiff.models import attention as jattn
+from pcdiff.ops import flash_attention as jfa
 from pcdiff.models import configs as jconfigs
 from pcdiff_torch.core import flax_from_params, params_from_flax
 from pcdiff_torch.core.point_e_import import import_point_e_torch_state as timport
@@ -37,6 +38,7 @@ from pcdiff_torch.diffusion.configs import diffusion_from_config as tdiff_from_c
 from pcdiff_torch.models import attention as tattn
 from pcdiff_torch.models import configs as tconfigs
 from pcdiff_torch.models import point_e as tpe
+from pcdiff_torch.ops import flash_attention as tfa
 from pcdiff_torch.ops import layer_norm as tln
 
 torch.set_num_threads(2)
@@ -228,11 +230,19 @@ def fully_fused():
     tln.set_layernorm_backend("auto")
 
 
-@pytest.mark.parametrize("name,width,heads", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
-def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, heads):
+# and one with the bf16 exp switch on in both packages, at head dim 64 (attention_mh64.cu's
+# exp mode on the card)
+FUSED_SOFTMAX = [c + ("float32",) for c in FUSED_CASES] + [("base40M", 128, 2, "bfloat16")]
+
+
+@pytest.mark.parametrize("name,width,heads,softmax", FUSED_SOFTMAX,
+                         ids=[c[0] + ("" if c[3] == "float32" else " bf16 exp")
+                              for c in FUSED_SOFTMAX])
+def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, heads, softmax):
     """The tiny models' forward with the whole-MLP fusion on in both packages, one set of
     weights; every block's MLP goes through ``fused_ln_mlp`` (the JAX side traces its XLA
-    composition of the same math off the TPU)."""
+    composition of the same math off the TPU); under the bf16 exp switch every attention
+    takes the exp panel's roundings in both."""
     cfg = _config(name, width, heads)
     sd = reference_state(cfg)
     variables = jimport(sd)
@@ -242,9 +252,19 @@ def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, he
     monkeypatch.setattr(tpe, "fused_ln_mlp", lambda *a: calls.append(1) or real(*a))
     x, t, kw = inputs(cfg)
     jmod = jconfigs.model_from_config(cfg)
-    want = jax.jit(lambda v, x, t, kw: jmod.apply(v, x, t, **kw))(
-        variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()})
-    got = port_forward(model, x, t, kw)
+    jfa.set_attention_softmax_dtype(softmax)
+    tfa.set_attention_softmax_dtype(softmax)
+    # under the switch the JAX side runs op by op: jit on the CPU would fold the bf16 round
+    # trip of the exponentials away (convert pairs simplified), dropping a rounding the TPU
+    # kernel, the port and the eager XLA twin all take
+    apply = (jax.jit if softmax == "float32" else lambda f: f)(
+        lambda v, x, t, kw: jmod.apply(v, x, t, **kw))
+    try:
+        want = apply(variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()})
+        got = port_forward(model, x, t, kw)
+    finally:
+        jfa.set_attention_softmax_dtype("float32")
+        tfa.set_attention_softmax_dtype("float32")
     assert len(calls) == cfg["layers"]
     # fp32 on both sides; the fused MLP's sums over C and F in other orders
     _close(got, want)

@@ -53,6 +53,7 @@ def _both(a):
     (37, 131, 4, 128, "float32"),   # ragged both ways, read-like
     (131, 37, 4, 128, "bfloat16"),  # write-like, the kernel's bf16 operands
     (45, 45, 8, 256, "bfloat16"),   # the flagship's 8 heads of 32
+    (37, 131, 2, 128, "bfloat16"),  # head dim 64, the Point-E path's (attention_mh64.cu)
 ])
 def test_bf16_exp_plain_matches_pallas(rng, jax_bf16_exp, nq, nk, heads, hd, mxu):
     (jq, tq), (jk, tk), (jv, tv) = (_both(a) for a in _qkv(rng, 2, nq, nk, hd))
