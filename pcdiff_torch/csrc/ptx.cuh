@@ -3,8 +3,9 @@
 // accumulation and the rounding to TF32, ex2.approx and bf16 packing, the warpgroup product
 // wgmma (A from shared memory or from registers) with its fences and shared-memory
 // descriptors, the pieces of a warp-specialised ring (mbarriers, named barriers, the tensor
-// memory accelerator's 2-D and 3-D copies) and of a thread-block cluster (its barrier, a peer
-// block's shared memory). Shared by
+// memory accelerator's 2-D and 3-D copies, a 2-D copy multicast to a cluster) and of a
+// thread-block cluster (its barrier, a peer block's shared memory and mbarriers, a bulk copy
+// into a peer's shared memory). Shared by
 // the attention loop (attention_fwd.cuh), the LayerNorm -> projections loop
 // (ln_dense_fwd.cuh) and its wide rows (ln_dense.cu), the whole-MLP kernel (ln_mlp.cu), the
 // LayerNorm -> projections backward (ln_dense_bwd.cu) and the head-dim-64 attention
@@ -437,15 +438,52 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
-// 16 bytes of block `rank`'s shared memory at the offset of `p` in this block's.
-__device__ __forceinline__ float4 ld_peer_f4(const void* p, unsigned rank) {
+// The address, in the cluster's shared window, of the offset of `p` in block `rank`'s shared
+// memory.
+__device__ __forceinline__ unsigned peer_addr(const void* p, unsigned rank) {
   unsigned remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+// 16 bytes of block `rank`'s shared memory at the offset of `p` in this block's.
+__device__ __forceinline__ float4 ld_peer_f4(const void* p, unsigned rank) {
+  const unsigned remote = peer_addr(p, rank);
   float4 v;
   asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
                : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote) : "memory");
   return v;
+}
+
+// One arrival on block `rank`'s mbarrier at the offset of `bar`, releasing this thread's
+// earlier memory operations to the cluster (a consumer telling a peer that it is done reading).
+__device__ __forceinline__ void mbar_arrive_peer(unsigned long long* bar, unsigned rank) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(peer_addr(bar, rank)) : "memory");
+}
+// mbar_wait with acquire at the cluster's scope: for a barrier that a peer block arrives on or
+// completes bytes on.
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) of this block's shared memory at `src`
+// copied by the bulk-copy unit to block `rank`'s at the offset of `dst`; completion counts the
+// bytes on `rank`'s mbarrier at the offset of `bar`. The copy reads through the async proxy: the
+// threads that wrote `src` fence (fence_proxy_async) before the thread that issues it sees them.
+__device__ __forceinline__ void bulk_copy_to_peer(void* dst, const void* src, unsigned bytes,
+                                                  unsigned long long* bar, unsigned rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(peer_addr(dst, rank)), "r"(smem_u32(src)), "r"(bytes), "r"(peer_addr(bar, rank))
+      : "memory");
 }
 
 // The box of the 2-D tensor map `map` (a __grid_constant__ kernel parameter) at element
@@ -457,6 +495,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const void* map, unsigned
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// The box of tma_load_2d written into the shared memory of every block of the cluster whose
+// bit is set in `mask` (bit i: rank i), each at the offset of `dst` in its own, completing on
+// each one's mbarrier at the offset of `bar`: one read of L2 for the cluster.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const void* map,
+                                                      unsigned long long* bar, int c0, int c1,
+                                                      unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
 }
 
 // The same for a 3-D tensor map, coordinates (c0 innermost, c1, c2).

@@ -4,8 +4,8 @@ hidden activation never reaching device memory.
 Counterpart of :func:`pcdiff.ops.ln_dense.fused_ln_mlp` and its custom VJP.
 :func:`fused_ln_mlp` is a :class:`torch.autograd.Function`. On a CUDA tensor its forward
 launches ``csrc/ln_mlp.cu`` (K5; it replaces the TPU kernel
-``pcdiff/ops/ln_dense.py::_ln_mlp_kernel``; C, O <= 256, and Point-E's wide rows C = O = 512,
-F = 2048); on a CPU tensor, or under
+``pcdiff/ops/ln_dense.py::_ln_mlp_kernel``; C, O <= 256, Point-E's wide rows C = O = 512,
+F = 2048, and in bf16 base300M's C = O = 1024, F = 4096); on a CPU tensor, or under
 ``set_lndense_backend("plain")`` (the switch of the LN+Dense kernels, which the JAX
 package's ``use_ln_mlp`` reads too), or outside its domain (:func:`_in_domain`), it runs
 :func:`_torch_ln_mlp`, the plain version. The backward is ``_mlp_bwd``'s: it recomputes
@@ -23,6 +23,10 @@ For a bf16 output the kernel takes both weights in bf16, cast once per parameter
 K3's cache (:func:`pcdiff_torch.ops.ln_dense._product_weight`), so no block converts a
 weight. The wide rows' fp32 path multiplies in 3xTF32 and takes each weight's TF32 parts,
 split once per parameter version (:func:`_split_weight`), so no warp splits a weight either.
+Past C = 512 (512 < C = O <= 1024, C % 128 == 0, F = 4C: base300M's MLP) the kernel takes bf16
+outputs only, on a cluster pair of blocks a row tile; fp32 outputs at those widths take the
+plain version, as the JAX package's ``use_ln_mlp`` sends them to XLA at base300M's rows (their
+VMEM estimate, ~107 MiB, is past its 96 MiB budget; bf16's ~71 MiB is within it).
 """
 
 from __future__ import annotations
@@ -35,16 +39,18 @@ from torch.utils.weak import WeakIdKeyDictionary
 from . import _native
 from . import ln_dense as ld
 
-__all__ = ["fused_ln_mlp", "launches"]
+__all__ = ["fused_ln_mlp", "launches", "width_launches"]
 
 _MAX_C = 256
 _MAX_O = 256
 _MAX_C_WIDE = 512  # the wide rows: 256 < C = O <= 512, C % 128 == 0, F = 4 C (Point-E's MLP)
+_MAX_C_PAIR = 1024  # and past them, bf16 only: 512 < C = O <= 1024 (base300M's MLP)
 # the TF32 parts of fp32 weights for the wide rows (:func:`_split_weight`), held while the
 # weight lives
 _W_TF32 = WeakIdKeyDictionary()
 
 launches = 0  # K5 launches since the last reset (chip_smoke.py resets it)
+width_launches: dict = {}  # K5 launches by C, likewise (clear() resets it)
 _fn = None
 
 
@@ -87,14 +93,22 @@ def _wide(c: int, f: int, o: int) -> bool:
     return _MAX_C < c <= _MAX_C_WIDE and c % 128 == 0 and o == c and f == 4 * c
 
 
+def _pair(c: int, f: int, o: int, out_dtype) -> bool:
+    """The wide rows past C = 512, which the kernel takes in bf16 only: 512 < C = O <= 1024
+    with C % 128 == 0 and F = 4 C (base300M's MLP: C = 1024, F = 4096)."""
+    return (out_dtype == torch.bfloat16 and _MAX_C_WIDE < c <= _MAX_C_PAIR and c % 128 == 0
+            and o == c and f == 4 * c)
+
+
 def _in_domain(x, w1, w2, out_dtype) -> bool:
     """K5's domain, checked before any launch: K3's for ``x`` and ``w1`` (fp32 or bf16,
     C % 32 == 0, F % 64 == 0) at K5's own widths, either 0 < C <= 256 and 0 < O <= 256 with
-    O % 32 == 0, or the wide rows (:func:`_wide`)."""
+    O % 32 == 0, or the wide rows (:func:`_wide`, and in bf16 :func:`_pair`)."""
     c, f, o = x.shape[-1] if x.dim() else 0, w1.shape[0], w2.shape[0]
-    if not ld._in_domain(x, [w1], out_dtype, _MAX_C_WIDE):
+    if not ld._in_domain(x, [w1], out_dtype, _MAX_C_PAIR):
         return False
-    return (c <= _MAX_C and 0 < o <= _MAX_O and o % 32 == 0) or _wide(c, f, o)
+    return ((c <= _MAX_C and 0 < o <= _MAX_O and o % 32 == 0) or _wide(c, f, o)
+            or _pair(c, f, o, out_dtype))
 
 
 def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
@@ -111,11 +125,12 @@ def _check(x, scale, bias, w1, b1, w2, b2, out_dtype, act):
     f, o = w1.shape[0], w2.shape[0]
     narrow = (c % 32 == 0 and 0 < c <= _MAX_C and f > 0 and f % 64 == 0 and o % 32 == 0
               and 0 < o <= _MAX_O)
-    if rows == 0 or not (narrow or _wide(c, f, o)):
+    if rows == 0 or not (narrow or _wide(c, f, o) or _pair(c, f, o, out_dtype)):
         raise ValueError(f"the kernel takes 0 < C <= {_MAX_C} with C % 32 == 0, F % 64 == 0, "
                          f"0 < O <= {_MAX_O} with O % 32 == 0, or {_MAX_C} < C = O <= "
-                         f"{_MAX_C_WIDE} with C % 128 == 0 and F = 4C, and rows > 0, got x "
-                         f"{tuple(x.shape)}, w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+                         f"{_MAX_C_WIDE} (bf16 outputs: <= {_MAX_C_PAIR}) with C % 128 == 0 "
+                         f"and F = 4C, and rows > 0, got x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, out {out_dtype}")
     dev = x.device
     for t, shape, what in ((scale, (c,), "LN scale"), (bias, (c,), "LN bias"),
                            (w1, (f, c), "w1"), (b1, (f,), "b1"), (w2, (o, f), "w2"),
@@ -167,6 +182,7 @@ def _launch(x, scale, bias, w1, b1, w2, b2, eps, out_dtype, act):
     if err:
         raise RuntimeError(f"ln_mlp kernel launch failed: cudaError_t {err}")
     launches += 1
+    width_launches[c] = width_launches.get(c, 0) + 1
     return out
 
 

@@ -50,7 +50,7 @@ _W_FC2 = "    wgmma_m64n256k16_ss<0, 0>(acc2, da + 2 * kk, db + 2 * kk, 1);"
 _W_GELU = ("    hidden_pairs<ACT>(acc, p, b1, hp, pcdiff_ln::DivFast{ok});\n"
            "    if (ACT != ACT_GELU && !ok) hidden_pairs<ACT>(acc, p, b1, hp, "
            "pcdiff_ln::DivRn());")
-_W_FILL = "    mbar_expect_tx(&full[s % STAGES], SLOT_BYTES);\n    return &full[s % STAGES];"
+_W_FILL = "    mbar_expect_tx(&full[s % STAGES], BYTES);\n    return &full[s % STAGES];"
 _W_W1 = ("        tma_load_2d(dst + kb * 64 * 64, &a.w1_map, bar, 256 * j + 64 * kb, "
          "(sh.c0 + t) * WFC);")
 _W_W2 = "      tma_load_2d(ring.slot(s), &a.w2_map, ring.fill(s), (sh.c0 + t) * WFC, 256 * h);"

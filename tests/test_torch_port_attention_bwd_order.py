@@ -36,7 +36,7 @@ import torch
 
 from pcdiff_torch.ops import flash_attention as fa
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 HEADS, D, ROWS, TILE = 8, 32, 2, 64
 LOG2E = torch.tensor(1.4426950408889634, dtype=torch.float32)

@@ -33,7 +33,7 @@ from pcdiff_torch.train import make_loss_fn
 
 from .test_torch_port_train import _COND, B, TINY, _jax_loss, _params
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 J_HOOKS = dict(read_attention_fn=jfa.fused_attention, write_attention_fn=jfa.fused_attention,
                compute_attention_fn=jfa.fused_attention)

@@ -21,7 +21,7 @@ from pcdiff_torch.ops import attn_ladder as al
 from pcdiff_torch.scripts import attn_profile
 
 ROOT = Path(__file__).resolve().parents[1]
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 @pytest.fixture(scope="module")

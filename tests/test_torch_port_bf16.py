@@ -31,7 +31,7 @@ from pcdiff_torch.ops import layer_norm as tln
 
 from .test_torch_port_models import TINY, _params, _tiny_batch
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 @pytest.fixture(params=["default", "fully_fused"])

@@ -34,7 +34,7 @@ from pcdiff_torch.train import make_loss_fn
 
 from .test_torch_port_train import B, TINY, _jax_loss, _params
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 GRAD_TINY = dict(TINY, active_modalities=("class", "view"))
 

@@ -17,7 +17,7 @@ from pcdiff_torch.diffusion import diffusion_from_betas
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 from pcdiff_torch.train import create_train_state, ema_update, init_ema, make_train_step
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TINY = dict(num_points=16, num_latents=4, latent_dim=32, x_dim=32, num_blocks=2,
             num_compute_layers=2, num_heads=4, num_classes=10, num_tokens_ppcd=4,

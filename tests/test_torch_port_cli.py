@@ -23,7 +23,7 @@ from pcdiff_torch.geometry import read_ply
 from pcdiff_torch.models.wrapper import BoundTwoStream
 from pcdiff_torch.train import make_device_data_step, permute_points
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 ROOT = Path(__file__).resolve().parents[1]
 
 TINY = [

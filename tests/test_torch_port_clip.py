@@ -23,7 +23,7 @@ from pcdiff_torch.models import clip as tclip
 from pcdiff_torch.tokenizer import SimpleTokenizer as TTokenizer
 from pcdiff_torch.tokenizer import bpe as tbpe
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 NAME = "tiny-test"
 KW = dict(embed_dim=16, image_resolution=32, vision_width=32, vision_layers=2,

@@ -45,7 +45,7 @@ from pcdiff_torch.models.embeddings import fourier_pe as tfourier
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 from pcdiff_torch.train import make_loss_fn
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 STEP_TOL = 1e-5
 LOOP_TOL = 1e-4

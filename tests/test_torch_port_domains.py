@@ -6,7 +6,8 @@ Each kernel states its domain as a pure check made before any launch:
 tiles within the grid's y extent), ``ln_dense._in_domain`` (K3: 0 < C <= 1024, C % 32 == 0,
 fewer than 2^31 rows, 1 to 3 outputs with F % 64 == 0), ``ln_dense._bwd_in_domain`` (K4: K3's
 at C <= 256) and ``ln_mlp._in_domain`` (K5: K3's at C <= 256 and 0 < O <= 256, O % 32 == 0, or the wide rows
-256 < C = O <= 512, C % 128 == 0, F = 4C):
+256 < C = O <= 512, C % 128 == 0, F = 4C, and past them in bf16 only up to C = O = 1024,
+base300M's MLP):
 the forward kernels were widened for the Point-E path, the backward ones were not, so no
 backward is handed a shape it was not built for. A CUDA
 tensor inside the domain launches the kernel; outside it takes the plain version, as the
@@ -29,7 +30,7 @@ from pcdiff_torch.ops import ln_dense as ld
 from pcdiff_torch.ops import ln_mlp as lm
 from pcdiff_torch.train import create_train_state
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 class _Spy:
@@ -163,6 +164,75 @@ def test_ln_dense_bwd_domain(c, fs, dtype, out, k3, k4):
 def test_ln_mlp_domain(c, f, o, want):
     x = torch.zeros(2, 3, c)
     assert lm._in_domain(x, torch.zeros(f, c), torch.zeros(o, f), torch.float32) is want
+
+
+@pytest.mark.parametrize("c,f,o,out,want", [
+    (1024, 4096, 1024, torch.bfloat16, True),   # base300M's MLP
+    (768, 3072, 768, torch.bfloat16, True),     # between the wide rows and 1024, C % 128 == 0
+    (1024, 4096, 1024, torch.float32, False),   # fp32 there: the plain version, as XLA's
+    (1152, 4608, 1152, torch.bfloat16, False),  # past 1024
+    (1024, 2048, 1024, torch.bfloat16, False),  # F != 4C
+    (1024, 4096, 512, torch.bfloat16, False),   # O != C
+    (960, 3840, 960, torch.bfloat16, False),    # C % 128 != 0
+])
+def test_ln_mlp_domain_past_the_wide_rows(c, f, o, out, want):
+    """K5 past C = 512 takes bf16 outputs only, from x in either dtype."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(2, 3, c, dtype=dtype)
+        assert lm._in_domain(x, torch.zeros(f, c), torch.zeros(o, f), out) is want
+
+
+def _mlp300_args(out, seed=4):
+    """base300M's MLP (C = O = 1024, F = 4096) on a few rows of bf16 x."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(2, 5, 1024, generator=g).bfloat16()
+    return (x, torch.ones(1024), torch.zeros(1024), torch.randn(4096, 1024, generator=g) / 32,
+            torch.zeros(4096), torch.randn(1024, 4096, generator=g) / 64, torch.zeros(1024),
+            1e-5, out, "gelu")
+
+
+@pytest.mark.parametrize("out,kernel", [(torch.bfloat16, True), (torch.float32, False)])
+def test_ln_mlp_dispatch_past_the_wide_rows(card, out, kernel):
+    """base300M's MLP on the card: bf16 outputs launch K5, fp32 ones take the plain version."""
+    args = _mlp300_args(out)
+    torch.testing.assert_close(lm.fused_ln_mlp(*args), lm._torch_ln_mlp(*args))
+    assert card["k5"].calls == int(kernel)
+
+
+def test_ln_mlp_past_the_wide_rows_on_the_cpu_is_the_plain_version(monkeypatch):
+    """On a CPU tensor the wrapper runs the plain version at base300M's widths: no launch."""
+    def no_kernel():
+        raise AssertionError("a CPU tensor reached the kernel")
+
+    monkeypatch.setattr(lm, "_kernel_fn", no_kernel)
+    monkeypatch.setattr(lm, "launches", 0)
+    args = _mlp300_args(torch.bfloat16)
+    assert torch.equal(lm.fused_ln_mlp(*args), lm._torch_ln_mlp(*args))
+    assert lm.launches == 0
+
+
+def test_ln_mlp_launch_past_the_wide_rows_counts_by_width(monkeypatch):
+    """A bf16 launch at C = 1024 hands the kernel the weights' bf16 copies and counts once in
+    ``launches`` and once under C in ``width_launches``; an fp32 one raises before it builds."""
+    seen = []
+
+    def kernel(*args):
+        seen.append((args[3], args[5], args[9:12]))  # w1, w2, (C, F, O)
+        return 0
+
+    monkeypatch.setattr(lm, "_kernel_fn", lambda: kernel)
+    monkeypatch.setattr(lm._native, "stream", lambda device: 0)
+    monkeypatch.setattr(lm.torch.cuda, "device", contextlib.nullcontext)
+    monkeypatch.setattr(lm, "launches", 0)
+    monkeypatch.setattr(lm, "width_launches", {})
+    args = _mlp300_args(torch.bfloat16)
+    lm._launch(*args)
+    w1, w2 = ld._W_BF16[args[3]][1], ld._W_BF16[args[5]][1]
+    assert seen == [(w1.data_ptr(), w2.data_ptr(), (1024, 4096, 1024))]
+    assert lm.launches == 1 and lm.width_launches == {1024: 1}
+    with pytest.raises(ValueError, match="bf16 outputs"):
+        lm._launch(*_mlp300_args(torch.float32))
+    assert lm.launches == 1 and len(seen) == 1
 
 
 def _attn(b, n, hd, dtype=torch.float32, seed=0):

@@ -22,7 +22,7 @@ from pcdiff.ops import ln_dense as ld
 from pcdiff_torch.ops import flash_attention as tfa
 from pcdiff_torch.ops import ln_dense as tld
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 def _qkvg(rng, b, nq, nk, hd):

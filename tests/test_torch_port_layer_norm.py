@@ -22,7 +22,7 @@ from pcdiff.ops import layer_norm as jln
 from pcdiff_torch.models import attention as tattn
 from pcdiff_torch.ops import layer_norm as tln
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 @pytest.fixture

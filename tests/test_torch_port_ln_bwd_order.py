@@ -44,7 +44,7 @@ import torch
 
 from pcdiff_torch.ops import ln_dense as ld
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 EPS = 1e-5
 K4_TOL = 1e-4  # chip_smoke.py: K4 against its plain version, fp32, of max |ref| per gradient

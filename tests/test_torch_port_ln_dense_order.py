@@ -25,7 +25,7 @@ import torch
 
 from pcdiff_torch.ops import ln_dense as ld
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 LN_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 1e-2)}  # chip_smoke.py
 EPS = 1e-5

@@ -47,7 +47,7 @@ from pcdiff_torch.train import make_loss_fn
 from .test_torch_port_models import _params, _tiny_batch
 from .test_torch_port_train import _jax_loss
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TINY = dict(num_points=32, num_latents=8, latent_dim=32, x_dim=32, num_blocks=2,
             num_compute_layers=1, num_heads=4, num_classes=10, num_tokens_ppcd=4,
@@ -120,11 +120,19 @@ def test_ln_mlp_fwd_bf16_matches_pallas(rng):
     assert np.abs(got - want).mean() < 2e-3 * np.abs(want).mean()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ln_mlp_fwd_point_e_width_matches_pallas_and_xla(rng, dtype):
-    """Point-E's MLP, the wide rows of K5 (C = O = 512, F = 2048, exact GELU), ragged rows:
-    the plain version against the Pallas kernel in interpret mode and ``_xla_ln_mlp``."""
-    arrs = _mlp_inputs(rng, 2, 19, 512, 2048, 512)
+# (dtype, C = O with F = 4C, rows as (B, N)): base40M's and the upsampler's MLP, and base300M's,
+# which the kernel takes past C = 512 in bf16 only (fp32 there takes this plain version)
+POINT_E_MLPS = [("float32", 512, (2, 19)), ("bfloat16", 512, (2, 19)),
+                ("float32", 1024, (1, 19)), ("bfloat16", 1024, (1, 19))]
+
+
+@pytest.mark.parametrize("dtype,width,rows", POINT_E_MLPS,
+                         ids=["float32", "bfloat16", "float32-base300M", "bfloat16-base300M"])
+def test_ln_mlp_fwd_point_e_width_matches_pallas_and_xla(rng, dtype, width, rows):
+    """Point-E's MLP, the wide rows of K5 (C = O = 512, F = 2048, and base300M's C = O = 1024,
+    F = 4096; exact GELU), ragged rows: the plain version against the Pallas kernel in
+    interpret mode and ``_xla_ln_mlp``."""
+    arrs = _mlp_inputs(rng, *rows, width, 4 * width, width)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
     x = jnp.asarray(arrs[0]).astype(jdt)
     jargs = [x] + [jnp.asarray(a) for a in arrs[1:]]
@@ -135,8 +143,7 @@ def test_ln_mlp_fwd_point_e_width_matches_pallas_and_xla(rng, dtype):
     targs[0] = torch.from_numpy(np.array(x.astype(jnp.float32))).to(tdt)
     got = tlm._torch_ln_mlp(*targs, 1e-5, tdt, "gelu").float().numpy()
     if dtype == "float32":
-        # fp32 LN, products and activation on every side; sums over 512 and 2048 in other
-        # orders
+        # fp32 LN, products and activation on every side; sums over C and 4C in other orders
         for want in (pallas, xla):
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
     else:

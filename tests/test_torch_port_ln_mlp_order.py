@@ -45,7 +45,7 @@ import torch
 from pcdiff_torch.ops import ln_dense as ld
 from pcdiff_torch.ops import ln_mlp as lm
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 ROWS, C, F, O, FC = 320, 256, 1024, 256, 64
 EPS = 1e-5

@@ -27,7 +27,7 @@ from pcdiff_torch.models import attention as tattn
 from pcdiff_torch.models import rin as trin
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 # Both heavy encoders see 5 tokens (4 points or 2 x 2 patches, + CLS) and decode 4, so
 # their ops share shapes and JAX compiles them once.

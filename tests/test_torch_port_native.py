@@ -360,6 +360,35 @@ def test_wide_panels_and_rings_fit_an_sm():
     assert 1024 + 2 * 64 * (bq + 2 * k1_stages * bkv) + part + 8 * (2 * k1_stages + 1) <= limit
 
 
+def test_k5_past_the_wide_rows_builds_on_a_cluster_pair():
+    """K5 past C = 512 (``ln_mlp.cu`` namespace ``pair``, base300M's MLP): a cluster of two
+    blocks a 64-row tile, x multicast to both by the TMA, each block's half of every h chunk
+    copied into the peer's shared memory by the bulk-copy unit and each slot's reuse signalled
+    on the peer's mbarriers; bf16 ``wgmma`` on the wide rows' panel, GELU store and epilogue;
+    no atomics; the panel, two h slots and the ring within 227 KB; its widest C the wrapper's."""
+    from pcdiff_torch.ops import ln_mlp as lm
+
+    text = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
+    pair = text[text.index("namespace pair {"):text.index("}  // namespace pair")]
+    code = re.sub(r"//[^\n]*", "", pair)
+    for call in ("tma_load_2d_multicast(", "bulk_copy_to_peer(", "mbar_arrive_peer(",
+                 "mbar_wait_cluster(", "cluster_sync(", "wgmma_m64n32k16(", "wgmma_m64n128k16(",
+                 "wide::store_hidden<ACT>(", "pw::wide_epilogue_bf16<", "pw::panel<",
+                 "setmaxnreg_inc<", "wide::Ring<"):
+        assert call in code, call
+    for banned in ("atomic", "mma_tf32(", "fma_stage_fp32", "wmma"):
+        assert banned not in code, banned
+    ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
+    for op in (".multicast::cluster", "cp.async.bulk.shared::cluster.shared::cta",
+               "mbarrier.arrive.release.cluster.shared::cluster",
+               "mbarrier.try_wait.parity.acquire.cluster", "mapa.shared::cluster"):
+        assert op in ptx, op
+    pr, kp, hc, stages, stage = (_constant(pair, n)
+                                 for n in ("PR", "KP", "HC", "STAGES", "STAGE_BYTES"))
+    assert 1024 + (pr * kp + 2 * pr * hc) * 2 + stages * stage + 8 * (2 * stages + 5) <= 232448
+    assert _constant(pair, "MAX_C") == kp == lm._MAX_C_PAIR
+
+
 # clusters of 1-4 blocks an H100 80GB HBM3 ran at once, one block an SM on 132 SMs (the
 # card's own count comes from pcdiff_attention_mh64_tiling)
 H100_CLUSTERS = (132, 66, 39, 30)

@@ -19,7 +19,7 @@ from pcdiff_torch.ops import flash_attention as tfa
 from pcdiff_torch.ops import layer_norm as tln
 from pcdiff_torch.ops import ln_dense as tld
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 def _qkv(rng, b, nq, nk, hd):

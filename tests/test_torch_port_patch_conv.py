@@ -21,7 +21,7 @@ from pcdiff_torch.core import params_from_flax
 from pcdiff_torch.models.encoders import DepthMapEncoder as TDepth
 from pcdiff_torch.models.encoders import PatchConv
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 def _conv(x, pc, rounding=None):

@@ -48,7 +48,7 @@ from pcdiff_torch.geometry import ops as tops
 jfps = importlib.import_module("pcdiff.geometry.fps")
 tfps = importlib.import_module("pcdiff_torch.geometry.fps")
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 TOL = {np.float32: 1e-5, np.float64: 1e-10}
 DTYPES = [np.float32, np.float64]
 

@@ -8,7 +8,9 @@ Each model is built from a preset of ``MODEL_CONFIGS`` (and the one class no pre
 projection hides nothing): the JAX side through its importer, the port through its own and,
 again, through ``params_from_flax`` of the JAX tree. The JAX side runs the graph the TPU
 runs (``set_ln_dense_fusion("on")``), and the image and text pipelines' presets again in the
-fully fused configuration (``set_ln_mlp_fusion("on")`` on both sides). With more than one head, a wrong split of the
+fully fused configuration (``set_ln_mlp_fusion("on")`` on both sides), with base300M there at
+its full width (1024, 16 heads of 64), one layer, in fp32 and bf16 (bf16 held by
+``tests/test_torch_port_bf16.py``'s gap rule). With more than one head, a wrong split of the
 interleaved ``c_qkv``, a wrong split scale or a wrong conditioning-token order fails
 (``test_wrong_split_scale_or_order_is_seen``). Tolerances: 1e-5 for a model, 1e-4 for the
 sampler (fp32 differences carried through the solver's steps, as
@@ -41,7 +43,7 @@ from pcdiff_torch.models import point_e as tpe
 from pcdiff_torch.ops import flash_attention as tfa
 from pcdiff_torch.ops import layer_norm as tln
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 B = 2
 N_CTX, COND_CTX, GRID, GRID_DIM, CLIP_DIM = 8, 6, 2, 16, 24
@@ -65,7 +67,7 @@ def _fused_graph():
     jattn.set_ln_dense_fusion("auto")
 
 
-def _config(name, width, heads):
+def _config(name, width, heads, layers=2):
     """The preset (or, for the class no preset names, the upsample preset under that class)
     cut to the test's size; the same dict builds both packages' modules."""
     if name == "UpsamplePointDiffusionTransformer":  # no grid, so no conditioning dropout
@@ -74,7 +76,7 @@ def _config(name, width, heads):
         base["name"] = name
     else:
         base = dict(jconfigs.MODEL_CONFIGS[name])
-    over = dict(layers=2, width=width, heads=heads, n_ctx=N_CTX)
+    over = dict(layers=layers, width=width, heads=heads, n_ctx=N_CTX)
     if "Grid" in base["name"]:
         over.update(grid_size=GRID, grid_feature_dim=GRID_DIM)
     if base["name"] == "CLIPImagePointDiffusionTransformer":
@@ -157,8 +159,8 @@ def jax_forward(cfg, variables, x, t, kw):
     return np.asarray(_JIT[key](variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()}))
 
 
-def port_model(cfg, state):
-    model = tconfigs.model_from_config(cfg, device="cpu")
+def port_model(cfg, state, dtype=torch.float32):
+    model = tconfigs.model_from_config(cfg, dtype=dtype, device="cpu")
     model.load_state_dict(state, strict=True)
     return model.eval()
 
@@ -167,7 +169,7 @@ def port_forward(model, x, t, kw):
     with torch.no_grad():
         out = model(torch.from_numpy(x), torch.from_numpy(t),
                     **{k: torch.from_numpy(v) for k, v in kw.items()})
-    return out.numpy()
+    return out.float().numpy()
 
 
 def _close(got, want, tol=1e-5):
@@ -231,27 +233,40 @@ def fully_fused():
 
 
 # and one with the bf16 exp switch on in both packages, at head dim 64 (attention_mh64.cu's
-# exp mode on the card)
-FUSED_SOFTMAX = [c + ("float32",) for c in FUSED_CASES] + [("base40M", 128, 2, "bfloat16")]
+# exp mode on the card); then base300M at its full width (1024, 16 heads of 64: the MLP that K5
+# takes past C = 512 in bf16), one layer, in fp32 and in bf16
+# (name, width, heads, softmax dtype, model dtype, layers)
+FUSED_SOFTMAX = ([c + ("float32", "float32", 2) for c in FUSED_CASES]
+                 + [("base40M", 128, 2, "bfloat16", "float32", 2),
+                    ("base300M", 1024, 16, "float32", "float32", 1),
+                    ("base300M", 1024, 16, "float32", "bfloat16", 1)])
+FUSED_IDS = ([c[0] for c in FUSED_CASES]
+             + ["base40M bf16 exp", "base300M full width", "base300M full width bf16"])
 
 
-@pytest.mark.parametrize("name,width,heads,softmax", FUSED_SOFTMAX,
-                         ids=[c[0] + ("" if c[3] == "float32" else " bf16 exp")
-                              for c in FUSED_SOFTMAX])
-def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, heads, softmax):
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("name,width,heads,softmax,dtype,layers", FUSED_SOFTMAX, ids=FUSED_IDS)
+def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, heads, softmax,
+                                       dtype, layers):
     """The tiny models' forward with the whole-MLP fusion on in both packages, one set of
     weights; every block's MLP goes through ``fused_ln_mlp`` (the JAX side traces its XLA
     composition of the same math off the TPU); under the bf16 exp switch every attention
-    takes the exp panel's roundings in both."""
-    cfg = _config(name, width, heads)
+    takes the exp panel's roundings in both. In bf16 both packages build the model in bf16,
+    and the JAX package's fp32 forward is the function both approximate, held as
+    ``tests/test_torch_port_bf16.py`` holds the denoiser: ``gap`` = rel L2 (JAX bf16, JAX
+    fp32), the port within 1.5 gap of the fp32 function and 2 gap of the JAX bf16 output."""
+    cfg = _config(name, width, heads, layers)
     sd = reference_state(cfg)
     variables = jimport(sd)
-    model = port_model(cfg, timport(sd))
+    model = port_model(cfg, timport(sd), getattr(torch, dtype))
     calls = []
     real = tpe.fused_ln_mlp
     monkeypatch.setattr(tpe, "fused_ln_mlp", lambda *a: calls.append(1) or real(*a))
     x, t, kw = inputs(cfg)
-    jmod = jconfigs.model_from_config(cfg)
+    jmod = jconfigs.model_from_config(cfg, dtype=getattr(jnp, dtype))
     jfa.set_attention_softmax_dtype(softmax)
     tfa.set_attention_softmax_dtype(softmax)
     # under the switch the JAX side runs op by op: jit on the CPU would fold the bf16 round
@@ -260,14 +275,22 @@ def test_model_fully_fused_matches_jax(fully_fused, monkeypatch, name, width, he
     apply = (jax.jit if softmax == "float32" else lambda f: f)(
         lambda v, x, t, kw: jmod.apply(v, x, t, **kw))
     try:
-        want = apply(variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()})
+        want = np.asarray(apply(variables, x, t, {k: jnp.asarray(v) for k, v in kw.items()}),
+                          np.float32)
         got = port_forward(model, x, t, kw)
     finally:
         jfa.set_attention_softmax_dtype("float32")
         tfa.set_attention_softmax_dtype("float32")
     assert len(calls) == cfg["layers"]
-    # fp32 on both sides; the fused MLP's sums over C and F in other orders
-    _close(got, want)
+    if dtype == "float32":
+        # fp32 on both sides; the fused MLP's sums over C and F in other orders
+        _close(got, want)
+        return
+    fp32 = jax_forward(cfg, variables, x, t, kw)
+    gap = _rel(want, fp32)
+    assert 0 < gap < 5e-2, gap  # bf16 rounding, not a broken graph
+    assert _rel(got, fp32) <= 1.5 * gap, (_rel(got, fp32), gap)
+    assert _rel(got, want) <= 2.0 * gap, (_rel(got, want), gap)
 
 
 def test_upsampler_without_embeddings_uses_a_zero_grid():

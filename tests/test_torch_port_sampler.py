@@ -26,7 +26,7 @@ from pcdiff_torch.diffusion import karras as tk
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 from pcdiff_torch.models.wrapper import BoundTwoStream as TBound
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TINY = dict(num_points=16, num_latents=4, latent_dim=32, x_dim=32, num_blocks=1,
             num_compute_layers=1, num_heads=4, num_classes=10,

@@ -34,7 +34,7 @@ from pcdiff_torch.models import perceiver as tperceiver
 from pcdiff_torch.utils import marching as tmarching
 from pcdiff_torch.utils import pc_to_mesh as tmesh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 SDF = dict(jconfigs.MODEL_CONFIGS["sdf"], width=128, encoder_layers=2, encoder_heads=2,
            decoder_layers=2, decoder_heads=4, n_ctx=24)

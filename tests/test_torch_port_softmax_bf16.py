@@ -23,7 +23,7 @@ from jax.experimental.pallas import tpu as pltpu
 from pcdiff.ops import flash_attention as jfa
 from pcdiff_torch.ops import flash_attention as tfa
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 
 @pytest.fixture

@@ -34,7 +34,7 @@ from pcdiff_torch.diffusion.parallel import sample_heun_parallel, window_model_k
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 from pcdiff_torch.models.wrapper import BoundTwoStream as TBound
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TOL = 1e-4
 TINY = dict(num_points=16, num_latents=4, latent_dim=32, x_dim=32, num_blocks=1,

@@ -41,7 +41,7 @@ from pcdiff_torch.train import (
 )
 from pcdiff_torch.train import state as tstate
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TINY = dict(num_points=32, num_latents=8, latent_dim=32, x_dim=32, num_blocks=2,
             num_compute_layers=1, num_heads=4, num_classes=10, num_tokens_ppcd=4,

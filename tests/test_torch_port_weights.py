@@ -14,7 +14,7 @@ from pcdiff.models.two_stream import TwoStreamDenoiser as JTwoStream
 from pcdiff_torch.core import init_params, params_from_flax
 from pcdiff_torch.models.two_stream import TwoStreamDenoiser as TTwoStream
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)  # one intra-op thread: the suite's xdist workers share the cores
 
 TINY = dict(num_points=16, num_latents=4, latent_dim=32, x_dim=32, num_blocks=3,
             num_compute_layers=2, num_heads=4, num_classes=10, num_tokens_ppcd=4,
