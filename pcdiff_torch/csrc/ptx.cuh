@@ -461,6 +461,16 @@ __device__ __forceinline__ void mbar_arrive_peer(unsigned long long* bar, unsign
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
                :: "r"(peer_addr(bar, rank)) : "memory");
 }
+// An arrival on block `rank`'s mbarrier at the offset of `bar` with a local arrival's
+// semantics (release at the CTA's scope), as CUTLASS's cluster pipelines signal a stage's
+// producers: for a consumer whose reads of the stage were wgmma's, complete once wgmma_wait
+// returned, so that nothing of its own needs to be made visible to the cluster first. Each
+// mbar_arrive_peer is a release at the cluster's scope, far costlier when a warp makes one
+// every stage.
+__device__ __forceinline__ void mbar_arrive_remote(unsigned long long* bar, unsigned rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" :: "r"(peer_addr(bar, rank))
+               : "memory");
+}
 // mbar_wait with acquire at the cluster's scope: for a barrier that a peer block arrives on or
 // completes bytes on.
 __device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar, unsigned parity) {

@@ -24,7 +24,9 @@ K3's cache (:func:`pcdiff_torch.ops.ln_dense._product_weight`), so no block conv
 weight. The wide rows' fp32 path multiplies in 3xTF32 and takes each weight's TF32 parts,
 split once per parameter version (:func:`_split_weight`), so no warp splits a weight either.
 Past C = 512 (512 < C = O <= 1024, C % 128 == 0, F = 4C: base300M's MLP) the kernel takes bf16
-outputs only, on a cluster pair of blocks a row tile; fp32 outputs at those widths take the
+outputs only, on clusters of four blocks, two row tiles by the two halves of O, the blocks of
+an O half sharing each weight stage by a multicast (:func:`_pair_clusters` counts them); fp32
+outputs at those widths take the
 plain version, as the JAX package's ``use_ln_mlp`` sends them to XLA at base300M's rows (their
 VMEM estimate, ~107 MiB, is past its 96 MiB budget; bf16's ~71 MiB is within it).
 """
@@ -45,6 +47,7 @@ _MAX_C = 256
 _MAX_O = 256
 _MAX_C_WIDE = 512  # the wide rows: 256 < C = O <= 512, C % 128 == 0, F = 4 C (Point-E's MLP)
 _MAX_C_PAIR = 1024  # and past them, bf16 only: 512 < C = O <= 1024 (base300M's MLP)
+_PAIR_ROWS, _PAIR_CLUSTER = 64, 4  # there: rows a tile, blocks a cluster (two tiles)
 # the TF32 parts of fp32 weights for the wide rows (:func:`_split_weight`), held while the
 # weight lives
 _W_TF32 = WeakIdKeyDictionary()
@@ -95,9 +98,19 @@ def _wide(c: int, f: int, o: int) -> bool:
 
 def _pair(c: int, f: int, o: int, out_dtype) -> bool:
     """The wide rows past C = 512, which the kernel takes in bf16 only: 512 < C = O <= 1024
-    with C % 128 == 0 and F = 4 C (base300M's MLP: C = 1024, F = 4096)."""
+    with C % 128 == 0 and F = 4 C (base300M's MLP: C = 1024, F = 4096). The kernel
+    (``csrc/ln_mlp.cu`` namespace ``pair``) takes them in clusters of four blocks: two 64-row
+    tiles, each by the two halves of O, the two blocks of an O half receiving every weight stage
+    once by a TMA multicast, the two of a row tile trading their halves of each h chunk."""
     return (out_dtype == torch.bfloat16 and _MAX_C_WIDE < c <= _MAX_C_PAIR and c % 128 == 0
             and o == c and f == 4 * c)
+
+
+def _pair_clusters(rows: int) -> int:
+    """The clusters of four blocks a launch past the wide rows takes (``launch_pair`` in
+    ``csrc/ln_mlp.cu``): one for every two row tiles of ``_PAIR_ROWS``; with an odd number of
+    tiles the last cluster's second tile lies past the rows."""
+    return (-(-rows // _PAIR_ROWS) + 1) // 2
 
 
 def _in_domain(x, w1, w2, out_dtype) -> bool:

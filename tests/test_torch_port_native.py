@@ -361,32 +361,51 @@ def test_wide_panels_and_rings_fit_an_sm():
 
 
 def test_k5_past_the_wide_rows_builds_on_a_cluster_pair():
-    """K5 past C = 512 (``ln_mlp.cu`` namespace ``pair``, base300M's MLP): a cluster of two
-    blocks a 64-row tile, x multicast to both by the TMA, each block's half of every h chunk
-    copied into the peer's shared memory by the bulk-copy unit and each slot's reuse signalled
-    on the peer's mbarriers; bf16 ``wgmma`` on the wide rows' panel, GELU store and epilogue;
-    no atomics; the panel, two h slots and the ring within 227 KB; its widest C the wrapper's."""
+    """K5 past C = 512 (``ln_mlp.cu`` namespace ``pair``, base300M's MLP): a cluster of four
+    blocks, two 64-row tiles by the two halves of O; x multicast to a row tile's two blocks and
+    every weight stage to an O half's two (one box from each, each block's full barrier armed
+    for the whole stage), a slot refilled once both twins' consumer warps have arrived on its
+    empty barrier (their own block's and, remotely, the twin's: 16 arrivals); each block's half
+    of every h chunk copied into its peer's shared memory by the bulk-copy unit; bf16 ``wgmma``
+    on the wide rows' panel, GELU store and epilogue; no atomics; the launcher's cluster of four
+    and 64-row W boxes; the panel, two h slots and the ring within 227 KB; its widest C the
+    wrapper's."""
     from pcdiff_torch.ops import ln_mlp as lm
 
     text = (_native.CSRC_DIR / "ln_mlp.cu").read_text()
     pair = text[text.index("namespace pair {"):text.index("}  // namespace pair")]
     code = re.sub(r"//[^\n]*", "", pair)
-    for call in ("tma_load_2d_multicast(", "bulk_copy_to_peer(", "mbar_arrive_peer(",
-                 "mbar_wait_cluster(", "cluster_sync(", "wgmma_m64n32k16(", "wgmma_m64n128k16(",
-                 "wide::store_hidden<ACT>(", "pw::wide_epilogue_bf16<", "pw::panel<",
-                 "setmaxnreg_inc<", "wide::Ring<"):
+    for call in ("bulk_copy_to_peer(", "mbar_wait_cluster(", "cluster_sync(",
+                 "wgmma_m64n32k16(", "wgmma_m64n128k16(", "wide::store_hidden<ACT>(",
+                 "pw::wide_epilogue_bf16<", "pw::panel<", "setmaxnreg_inc<",
+                 "mbar_arrive_remote(&empty[s % STAGES], twin)", "mbar_arrive_peer(&pempty",
+                 "mbar_init(&ring.empty[i], 2 * CONSUMERS / 32)",
+                 "mbar_expect_tx(&full[s % STAGES], STAGE_BYTES)", "rank ^ 2u",
+                 "(unsigned short)(5u << half)", "(unsigned short)(3u << (2 * tile))"):
         assert call in code, call
+    assert code.count("tma_load_2d_multicast(") == 2  # x and the weights
+    assert "tma_load_2d(" not in code and "wide::Ring<" not in code
     for banned in ("atomic", "mma_tf32(", "fma_stage_fp32", "wmma"):
         assert banned not in code, banned
     ptx = (_native.CSRC_DIR / "ptx.cuh").read_text()
     for op in (".multicast::cluster", "cp.async.bulk.shared::cluster.shared::cta",
                "mbarrier.arrive.release.cluster.shared::cluster",
+               "mbarrier.arrive.shared::cluster.b64",
                "mbarrier.try_wait.parity.acquire.cluster", "mapa.shared::cluster"):
         assert op in ptx, op
-    pr, kp, hc, stages, stage = (_constant(pair, n)
-                                 for n in ("PR", "KP", "HC", "STAGES", "STAGE_BYTES"))
+    host = text[text.index("int launch_pair(wide::WideArgs& a"):]
+    host = host[:host.index("\n}\n")]
+    for line in ("a.splits = pair::CLUSTER;",
+                 "blocks = (unsigned)pair::CLUSTER * ((tiles + 1) / 2);",
+                 "map_2d<bf16>(&a.w1_map, w1, c, f, 64)", "map_2d<bf16>(&a.w2_map, w2, f, o, 64)"):
+        assert line in host, line
+    pr, kp, hc, stages, stage, cluster = (
+        _constant(pair, n) for n in ("PR", "KP", "HC", "STAGES", "STAGE_BYTES", "CLUSTER"))
+    # a stage: one 64 x 64 box of bf16 from each twin
+    assert "constexpr int BOX_ELEMS = 64 * 64;" in pair and 2 * 64 * 64 * 2 == stage
     assert 1024 + (pr * kp + 2 * pr * hc) * 2 + stages * stage + 8 * (2 * stages + 5) <= 232448
     assert _constant(pair, "MAX_C") == kp == lm._MAX_C_PAIR
+    assert (pr, cluster) == (lm._PAIR_ROWS, lm._PAIR_CLUSTER)
 
 
 # clusters of 1-4 blocks an H100 80GB HBM3 ran at once, one block an SM on 132 SMs (the
@@ -417,6 +436,23 @@ def test_k1_64_split_plan_matches_the_kernel(panel, want):
     splits = fa._k1_64_splits(panels, nq, nk, H100_CLUSTERS)
     assert 1 <= splits <= min(fa._K1_64_MAX_SPLITS, -(-nk // fa._K1_64_BKV))
     assert splits == want
+
+
+@pytest.mark.parametrize("rows,clusters", [
+    (1, 1),          # one short tile, its cluster's second tile past the rows
+    (65, 1),         # a full tile and a 1-row tile
+    (131, 2),        # the ragged off-path shape: a lone 3-row tile in the last cluster
+    (2562, 21),      # base300M's 2B rows at B = 1: 41 tiles, the last of 2 rows alone
+    (4 * 2562, 81),  # at B = 4: 161 tiles
+])
+def test_k5_pair_clusters_match_the_launcher(rows, clusters):
+    """``lm._pair_clusters`` gives the clusters of four that ``launch_pair`` launches; on an
+    H100's 30 co-resident clusters of four, B = 1 takes one wave and B = 4 three."""
+    from pcdiff_torch.ops import ln_mlp as lm
+
+    got = lm._pair_clusters(rows)
+    assert got == clusters and 2 * got * lm._PAIR_ROWS >= rows > 2 * (got - 1) * lm._PAIR_ROWS
+    assert -(-got // H100_CLUSTERS[lm._PAIR_CLUSTER - 1]) == (1 if rows <= 2562 else 3)
 
 
 @pytest.mark.parametrize("cut", list(k3_wide_cuts.CUTS), ids=" / ".join)
