@@ -76,7 +76,9 @@ def save_cloud_batch(points: np.ndarray, out_dir: str, prefix: str,
 
 
 def batch_kwargs(batch, device) -> Dict[str, torch.Tensor]:
-    return {k: torch.as_tensor(batch[k], device=device) for k in _COND_KEYS}
+    """The batch's conditioning inputs on ``device``: those it has (MVP has no view and
+    no depth map)."""
+    return {k: torch.as_tensor(batch[k], device=device) for k in _COND_KEYS if k in batch}
 
 
 def main(cfg: Config, device="cuda") -> Dict[str, object]:

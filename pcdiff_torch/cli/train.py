@@ -8,15 +8,28 @@ one with ``train.continue_training=true train.load_checkpoint_path=<run>/checkpo
 (or starts from a reference ``.pt``), samples the epoch's last batch to PLY files every
 ``sample_every`` epochs, and writes ``metrics.jsonl``.
 
-The dataset lives on the device when ``train.device_data`` allows (``auto``: below 2 GB):
+The datasets are ``modelnet``, ``mvp`` (``n_samples`` = ``model.num_points``; its labels run
+1-16, so it wants ``model.num_classes=17``: with fewer classes the labels past the table
+give NaN class tokens, as in the JAX package), ``multimodal`` and ``synthetic``. The
+dataset lives on the device when ``train.device_data`` allows (``auto``: below 2 GB):
 each step then sends one index row and permutes the targets on the device
 (:func:`~pcdiff_torch.train.make_device_data_step`); otherwise the loader streams host
 batches. Step metrics stay tensors until the end of the epoch, which reads them at once.
 Every random draw comes from one generator, seeded by ``train.seed`` and saved with the
 state, so that a resumed run repeats an unbroken one.
 
+Data parallel: under ``torchrun`` (``WORLD_SIZE`` > 1; NCCL, one card a process) or in a
+process group started by the caller, each rank trains on its shard of the data (the
+loader's ``process_index``/``process_count``: its rows of the device-data index table, or
+its host batches), every rank's step generator is seeded alike so the draws are the global
+batch's, and the step averages the gradients over the mesh's data group before the clip
+and AdamW (:func:`~pcdiff_torch.train.make_train_step`'s ``data_group``);
+``train.batch_size`` is a rank's, as in the JAX package. Rank 0 writes the config, the
+metrics, the checkpoints and the sampled PLYs, and sends its generator's state to the
+others after it samples; every rank resumes from the checkpoint.
+
 Usage: ``python -m pcdiff_torch.cli.train [--config cfg.yaml] [--device cuda|cpu]
-[key.path=value ...]``
+[key.path=value ...]``, or ``torchrun --nproc-per-node N -m pcdiff_torch.cli.train ...``
 """
 
 from __future__ import annotations
@@ -39,9 +52,18 @@ from ..core.checkpoint import (
 from ..core.config import Config, load_config, save_config
 from ..core.device import resolve_device
 from ..core.weights import init_params as _init_params
-from ..data import BatchLoader, ModelNetCompletion, make_modelnet_fixture
+from ..data import (
+    BatchLoader,
+    ModelNetCompletion,
+    MultiModalCompletion,
+    MVPCompletion,
+    make_modelnet_fixture,
+)
 from ..diffusion import diffusion_from_betas
 from ..models import TwoStreamDenoiser
+from ..parallel import initialize, make_mesh, replicate
+from ..parallel.distributed import process_count, process_index
+from ..parallel.mesh import data_group
 
 logger = logging.getLogger("pcdiff_torch.train")
 
@@ -114,6 +136,10 @@ def build_dataset(cfg: Config):
     name = cfg.data.dataset
     if name == "modelnet":
         return ModelNetCompletion(cfg.data.h5_path, split="train")
+    if name == "mvp":
+        return MVPCompletion(cfg.data.h5_path, prefix="train", n_samples=cfg.model.num_points)
+    if name == "multimodal":
+        return MultiModalCompletion(cfg.data.h5_path)
     if name == "synthetic":
         path = cfg.data.h5_path or os.path.join(cfg.train.output_dir, "pcdiff_synthetic.npz")
         if not os.path.exists(path):
@@ -121,8 +147,6 @@ def build_dataset(cfg: Config):
             make_modelnet_fixture(path, num_points=cfg.model.num_points,
                                   depth_size=cfg.model.depth_image_size)
         return ModelNetCompletion(path, split="train", skip_classes=None)
-    if name in ("mvp", "multimodal"):
-        raise NotImplementedError(f"the {name} dataset is not ported yet")
     raise ValueError(f"unknown dataset: {name}")
 
 
@@ -138,10 +162,31 @@ def _ema_dir(checkpoint_dir: str) -> str:
     return os.path.join(os.path.dirname(os.path.normpath(checkpoint_dir)), "ema")
 
 
+def _broadcast_object(obj, group):
+    """Rank 0's ``obj`` on every rank of ``group`` (``obj`` itself without one)."""
+    if group is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return box[0]
+
+
+def _sync_generator(generator: torch.Generator, group) -> None:
+    """Give every rank of ``group`` rank 0's state of ``generator``."""
+    if group is None:
+        return
+    generator.set_state(_broadcast_object(generator.get_state(), group))
+
+
 def main(cfg: Config, device="cuda") -> Dict[str, Any]:
-    """Train as configured on ``device`` (the card unless the caller asks for the CPU).
-    Returns a summary: ``run_dir``, ``resumed_step``, ``global_step``, per-epoch
-    ``epochs`` (steps, seconds of steps, mean loss), the final ``state`` and ``ema``."""
+    """Train as configured on ``device`` (the card unless the caller asks for the CPU),
+    data parallel over the process group where one is started (see the module's
+    docstring). Returns a summary: ``run_dir``, ``resumed_step``, ``global_step``,
+    ``device_data``, per-epoch ``epochs`` (steps, seconds of steps, mean loss), the rank
+    and world size, whether the step averaged over a data group (``data_parallel``), the
+    final ``state`` and ``ema``."""
     from ..core.logging import MetricsLogger, profile_trace
     from ..train import (
         create_train_state,
@@ -152,19 +197,29 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
     )
 
     dev = resolve_device(device)
+    initialize(device=dev)
+    mesh = make_mesh(dev.type)
+    group = data_group(mesh)
+    rank, world = process_index(), process_count()
+    lead = rank == 0
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s [%(levelname)s] %(message)s", force=True)
     timestamp = datetime.datetime.now().strftime("%d-%m-%Y_%H-%M")
-    run_dir = os.path.join(cfg.train.output_dir, f"run_{timestamp}")
-    os.makedirs(run_dir, exist_ok=True)
-    save_config(cfg, os.path.join(run_dir, "config_used.yaml"))
-    logger.info("starting run: %s on %s", run_dir, dev)
+    run_dir = _broadcast_object(os.path.join(cfg.train.output_dir, f"run_{timestamp}"), group)
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        save_config(cfg, os.path.join(run_dir, "config_used.yaml"))
+    logger.info("starting run: %s on %s (rank %d of %d)", run_dir, dev, rank, world)
 
+    # seeded alike on every rank: a step's draws are the global batch's
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     model = init_params(build_model(cfg, dev), cfg, gen)
     diffusion = build_diffusion(cfg)
     dataset = build_dataset(cfg)
-    loader = BatchLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed)
+    loader = BatchLoader(dataset, cfg.train.batch_size, seed=cfg.train.seed,
+                         process_index=rank, process_count=world)
     total_steps = len(loader) * cfg.train.epochs
 
     path = cfg.train.load_checkpoint_path
@@ -172,6 +227,7 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
     if cfg.train.continue_training and path.endswith(".pt"):
         logger.info("importing reference torch checkpoint: %s", path)
         model.load_state_dict(load_torch_checkpoint(path))
+    replicate(mesh, model)
 
     state = create_train_state(model, lr=cfg.train.lr, weight_decay=cfg.train.weight_decay,
                                total_steps=max(total_steps, 1), device=dev)
@@ -187,7 +243,7 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
     use_device_data = _device_data_enabled(cfg, dataset)
     step_kwargs = dict(self_conditioning_prob=cfg.train.self_conditioning_prob,
                        bootstrap_include_partial_pcd=cfg.train.bootstrap_include_partial_pcd,
-                       device=dev)
+                       data_group=group, device=dev)
     if use_device_data:
         step_fn = make_device_data_step(model, diffusion, **step_kwargs)
         host_data = stack_dataset(dataset, cfg.train.seed)
@@ -198,7 +254,8 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
         step_fn = make_train_step(model, diffusion, **step_kwargs)
 
     mlog = MetricsLogger(run_dir, project=cfg.wandb.project,
-                         run_name=os.path.basename(run_dir), use_wandb=cfg.wandb.enabled)
+                         run_name=os.path.basename(run_dir), use_wandb=cfg.wandb.enabled,
+                         is_lead_host=lead)
     global_step = resumed_step
     start_epoch = resumed_step // max(len(loader), 1)
     epochs = []
@@ -208,7 +265,7 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
         t0 = time.perf_counter()
         last_batch = None
         step_metrics = []  # tensors, read once at the end of the epoch
-        profiling = bool(cfg.train.profile_dir) and epoch == 1
+        profiling = bool(cfg.train.profile_dir) and epoch == 1 and lead
         with profile_trace(cfg.train.profile_dir or None, enabled=profiling):
             if use_device_data:
                 idx_table = loader.epoch_indices()
@@ -236,14 +293,17 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
             mlog.log(dict(zip(keys, values), self_conditioned=m["self_conditioned"]),
                      step=global_step)
         if last_batch is not None and (epoch + 1) % cfg.train.sample_every == 0:
-            _sample_last_batch(cfg, model, diffusion, last_batch, run_dir, epoch + 1, gen)
+            if lead:
+                _sample_last_batch(cfg, model, diffusion, last_batch, run_dir, epoch + 1, gen)
+            _sync_generator(gen, group)
         if host:
             mean_loss = sum(v[0] for v in host) / len(host)
             epochs.append(dict(epoch=epoch + 1, steps=len(host), step_seconds=step_seconds,
                                loss=mean_loss))
             logger.info("epoch %d: avg loss %.4f (%d steps, %.1fs)", epoch + 1, mean_loss,
                         len(host), time.perf_counter() - t0)
-            if (epoch + 1) % cfg.train.save_every == 0 and cfg.train.save_full_state:
+            if (lead and (epoch + 1) % cfg.train.save_every == 0
+                    and cfg.train.save_full_state):
                 save_checkpoint(os.path.join(run_dir, "checkpoints"), global_step, state,
                                 generator=gen, epoch=epoch + 1)
                 if ema is not None:
@@ -251,8 +311,13 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
                                     epoch=epoch + 1)
                 logger.info("saved checkpoint at step %d", global_step)
     mlog.finish()
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.barrier(group=group)  # the lead's last checkpoint is whole before any rank returns
     return dict(run_dir=run_dir, resumed_step=resumed_step, global_step=global_step,
-                device_data=use_device_data, epochs=epochs, state=state, ema=ema)
+                device_data=use_device_data, epochs=epochs, rank=rank, world=world,
+                data_parallel=group is not None, state=state, ema=ema)
 
 
 def _sample_last_batch(cfg: Config, model, diffusion, batch, run_dir: str, epoch: int,
@@ -288,7 +353,13 @@ def parse_args(argv=None, description: Optional[str] = None):
 
 def cli(argv=None):
     args = parse_args(argv, __doc__)
-    main(load_config(args.config, args.overrides), device=args.device)
+    try:
+        main(load_config(args.config, args.overrides), device=args.device)
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -55,7 +55,7 @@ class WandbConfig:
 @dataclass(frozen=True)
 class DataConfig:
     h5_path: str = ""
-    dataset: str = "modelnet"  # modelnet | synthetic (mvp | multimodal: not ported)
+    dataset: str = "modelnet"  # modelnet | mvp | multimodal | synthetic
 
 
 @dataclass(frozen=True)

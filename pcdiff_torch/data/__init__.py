@@ -1,5 +1,5 @@
-"""Data of the port: the ModelNet-completion dataset (``.npz`` or ``.h5``), batching, and
-synthetic batches and fixtures."""
+"""Data of the port: the ModelNet-completion, MVP and ShapeNet-multimodal datasets
+(``.npz`` or ``.h5``), the file audit, batching, and synthetic batches and fixtures."""
 
 from .loader import BatchLoader
 from .modelnet import (
@@ -10,9 +10,14 @@ from .modelnet import (
     export_instance_ground_truths,
     h5_to_npz,
 )
+from .multimodal import SHAPENET_LABEL_DICT, MultiModalCompletion
+from .mvp import MVP_LABEL_DICT, MVPCompletion
+from .qa import H5AuditReport, audit_modelnet_h5
 from .synthetic import (
     SYNTHETIC_CLASSES,
     make_modelnet_fixture,
+    make_multimodal_fixture,
+    make_mvp_fixture,
     make_shapes_fixture,
     synthetic_batch,
 )
@@ -25,8 +30,16 @@ __all__ = [
     "TRAIN_SKIP_INSTANCES",
     "export_instance_ground_truths",
     "h5_to_npz",
+    "MultiModalCompletion",
+    "SHAPENET_LABEL_DICT",
+    "MVPCompletion",
+    "MVP_LABEL_DICT",
+    "audit_modelnet_h5",
+    "H5AuditReport",
     "synthetic_batch",
     "make_modelnet_fixture",
     "make_shapes_fixture",
+    "make_mvp_fixture",
+    "make_multimodal_fixture",
     "SYNTHETIC_CLASSES",
 ]

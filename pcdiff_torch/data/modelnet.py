@@ -10,16 +10,23 @@ Storage: the path's suffix picks the format, and the two hold one schema.
   opened; without h5py opening one raises an ImportError naming :func:`h5_to_npz`);
 - ``.npz``: an uncompressed ``np.savez`` archive whose members are named by the H5
   dataset paths (``airplane/airplane_0000/partials/scan_0003/pointcloud``, ...), read
-  by numpy alone. Groups are walked in sorted name order, as h5py walks them.
+  by numpy alone; one scan of a ``[scans, ...]`` member is read from the file alone.
+  Groups are walked in sorted name order, as h5py walks them. A group attribute (the
+  multimodal layout's ``label``) is the member ``<group>/@<attribute>``, a 0-d array,
+  which ``keys`` does not list.
 
 :func:`h5_to_npz` converts an H5 file to the archive (where h5py is installed), and
-:func:`write_dataset` writes a ``{path: array}`` dict in either format.
+:func:`write_dataset` writes a ``{path: array}`` dict, and group attributes, in either
+format. :func:`open_dataset` opens either as one store (``keys``, ``read``, ``attr``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Sequence, Set
+import os
+import struct
+import zipfile
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Set
 
 import numpy as np
 
@@ -69,11 +76,40 @@ def _suffix(path: str) -> str:
     raise ValueError(f"{path}: the dataset's suffix must be .npz or .h5")
 
 
+def _member_layout(f, info: zipfile.ZipInfo) -> Optional[tuple]:
+    """(offset of the data in the file, shape, dtype) of the ``.npy`` member ``info`` of
+    the open zip file ``f`` where it is stored uncompressed, in C order and holds plain
+    data; None otherwise."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    f.seek(info.header_offset)
+    local = f.read(30)
+    if local[:4] != b"PK\x03\x04":
+        return None
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    f.seek(info.header_offset + 30 + name_len + extra_len)
+    version = np.lib.format.read_magic(f)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(f)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(f)
+    else:
+        return None
+    if dtype.hasobject or fortran:
+        return None
+    return f.tell(), shape, dtype
+
+
 class _NpzStore:
     """An ``np.savez`` archive seen as the H5 file's groups and datasets."""
 
     def __init__(self, path: str):
         self._npz = np.load(path)
+        self._file = open(path, "rb")
+        with zipfile.ZipFile(self._file) as zf:
+            self._infos = {info.filename[:-4]: info for info in zf.infolist()
+                           if info.filename.endswith(".npy")}
+        self._layouts: Dict[str, Optional[tuple]] = {}  # read at a member's first read
         self._tree: Dict = {}
         for name in self._npz.files:
             node = self._tree
@@ -84,12 +120,39 @@ class _NpzStore:
         node = self._tree
         for part in filter(None, group.split("/")):
             node = node[part]
-        return sorted(node)
+        return sorted(k for k in node if not k.startswith("@"))
 
-    def read(self, name: str) -> np.ndarray:
-        return self._npz[name]
+    def read(self, name: str, index: Any = ()) -> np.ndarray:
+        """The dataset ``name``, or its part ``index``; an integer index of a stored
+        member reads that row of the file alone."""
+        if name not in self._layouts:
+            self._layouts[name] = _member_layout(self._file, self._infos[name])
+        layout = self._layouts[name]
+        if layout is None:
+            return self._npz[name][index]
+        offset, shape, dtype = layout
+        if isinstance(index, (int, np.integer)) and shape:
+            if not -shape[0] <= index < shape[0]:
+                raise IndexError(f"index {index} is out of range for {name} {shape}")
+            row = math.prod(shape[1:]) * dtype.itemsize
+            offset += (int(index) % shape[0]) * row
+            shape, index = shape[1:], ()
+        data = bytearray(math.prod(shape) * dtype.itemsize)
+        view, got = memoryview(data), 0
+        while got < len(data):  # a read may return fewer bytes than asked (2 GB a call)
+            n = os.preadv(self._file.fileno(), [view[got:]], offset + got)
+            if n == 0:
+                raise EOFError(f"{name}: the archive ends inside the member")
+            got += n
+        return np.frombuffer(data, dtype=dtype).reshape(shape)[index]
+
+    def attr(self, group: str, name: str) -> Optional[str]:
+        """The group attribute ``name`` (the member ``<group>/@<name>``), or None."""
+        member = f"{group}/@{name}"
+        return self._npz[member].item() if member in self._npz.files else None
 
     def close(self) -> None:
+        self._file.close()
         self._npz.close()
 
 
@@ -100,8 +163,11 @@ class _H5Store:
     def keys(self, group: str = "") -> List[str]:
         return list((self._f[group] if group else self._f).keys())
 
-    def read(self, name: str) -> np.ndarray:
-        return self._f[name][()]
+    def read(self, name: str, index: Any = ()) -> np.ndarray:
+        return self._f[name][index]
+
+    def attr(self, group: str, name: str) -> Optional[str]:
+        return self._f[group].attrs.get(name, None)
 
     def close(self) -> None:
         self._f.close()
@@ -109,31 +175,50 @@ class _H5Store:
 
 def open_dataset(path: str):
     """The dataset file at ``path`` (``.npz`` or ``.h5``): ``keys(group)`` lists a
-    group's members in the order h5py gives them, ``read(name)`` reads a dataset."""
+    group's members in the order h5py gives them, ``read(name, index)`` reads a dataset
+    or its part ``index``, ``attr(group, name)`` a group attribute."""
     return _NpzStore(path) if _suffix(path) == ".npz" else _H5Store(path)
 
 
-def write_dataset(path: str, arrays: Mapping[str, np.ndarray]) -> str:
-    """Write ``{dataset path: array}`` to ``path`` in the format its suffix names."""
+def write_dataset(path: str, arrays: Mapping[str, np.ndarray],
+                  attrs: Optional[Mapping[str, Mapping[str, Any]]] = None) -> str:
+    """Write ``{dataset path: array}`` and ``{group: {attribute: value}}`` to ``path`` in
+    the format its suffix names."""
+    attrs = attrs or {}
     if _suffix(path) == ".npz":
+        members = dict(arrays)
+        for group, values in attrs.items():
+            for name, value in values.items():
+                members[f"{group}/@{name}"] = np.asarray(value)
         with open(path, "wb") as f:
-            np.savez(f, **arrays)
+            np.savez(f, **members)
         return path
     h5py = _import_h5py(path)
     with h5py.File(path, "w") as f:
         for name, arr in arrays.items():
             f.create_dataset(name, data=arr)
+        for group, values in attrs.items():
+            for name, value in values.items():
+                f[group].attrs[name] = value
     return path
 
 
 def h5_to_npz(src: str, dst: str) -> str:
-    """Convert the H5 file ``src`` to the uncompressed archive ``dst`` (needs h5py)."""
+    """Convert the H5 file ``src`` to the uncompressed archive ``dst`` (needs h5py):
+    every dataset, and every group attribute as the member ``<group>/@<attribute>``."""
     h5py = _import_h5py(src)
     arrays: Dict[str, np.ndarray] = {}
+    attrs: Dict[str, Dict[str, Any]] = {}
+
+    def visit(name, obj):
+        if isinstance(obj, h5py.Dataset):
+            arrays[name] = obj[()]
+        elif obj.attrs:
+            attrs[name] = dict(obj.attrs)
+
     with h5py.File(src, "r") as f:
-        f.visititems(lambda name, obj: arrays.__setitem__(name, obj[()])
-                     if isinstance(obj, h5py.Dataset) else None)
-    return write_dataset(dst, arrays)
+        f.visititems(visit)
+    return write_dataset(dst, arrays, attrs)
 
 
 def build_viewpoint_table() -> np.ndarray:

@@ -2,9 +2,12 @@
 
 The port's own copy of :mod:`pcdiff.data.synthetic` (numpy; the same draws from the same
 seed): ``synthetic_batch``, the uniform-random fixture ``make_modelnet_fixture`` and the
-parametric-shapes fixture ``make_shapes_fixture``. A fixture holds the reference's layout
-(``class/instance/{ground_truth, partials/scan_XXXX/{pointcloud, distance}}``) in the
-format its path's suffix names: ``.npz`` (numpy alone) or ``.h5`` (h5py); see
+parametric-shapes fixture ``make_shapes_fixture`` in the ModelNet-completion layout
+(``class/instance/{ground_truth, partials/scan_XXXX/{pointcloud, distance}}``), and the
+uniform-random ``make_mvp_fixture`` (``incomplete_pcds``, ``complete_pcds``, ``labels``)
+and ``make_multimodal_fixture`` (``obj_type/obj_id/{points, depth_maps, viewpoints,
+target_points}`` with the group attribute ``label``). Each is written in the format its
+path's suffix names: ``.npz`` (numpy alone) or ``.h5`` (h5py); see
 :mod:`pcdiff_torch.data.modelnet`.
 """
 
@@ -15,7 +18,7 @@ from typing import Dict, Sequence
 import numpy as np
 
 __all__ = ["synthetic_batch", "make_modelnet_fixture", "make_shapes_fixture",
-           "SYNTHETIC_CLASSES"]
+           "make_mvp_fixture", "make_multimodal_fixture", "SYNTHETIC_CLASSES"]
 
 SYNTHETIC_CLASSES = ("airplane", "bench", "bottle", "car", "monitor")
 
@@ -69,6 +72,48 @@ def make_modelnet_fixture(
                     rng.random((depth_size, depth_size)) * 255).astype(np.float32)
     write_dataset(path, arrays)
     return path
+
+
+def make_mvp_fixture(path: str, num_instances: int = 2, scans_per_instance: int = 26,
+                     num_points: int = 2048, seed: int = 0) -> str:
+    """Write a small uniform-random fixture with the MVP benchmark's layout (26 scans an
+    instance, labels 1-16) to ``path`` (``.npz`` or ``.h5``)."""
+    from .modelnet import write_dataset
+
+    rng = np.random.default_rng(seed)
+    n_scans = num_instances * scans_per_instance
+    arrays = {
+        "incomplete_pcds": rng.uniform(-0.5, 0.5, (n_scans, num_points, 3)).astype(
+            np.float32),
+        "complete_pcds": rng.uniform(-0.5, 0.5, (num_instances, num_points, 3)).astype(
+            np.float32),
+        "labels": rng.integers(1, 17, (n_scans,)).astype(np.int64),
+    }
+    return write_dataset(path, arrays)
+
+
+def make_multimodal_fixture(path: str, num_objects: int = 2, num_scans: int = 8,
+                            num_points: int = 64, depth_size: int = 32, seed: int = 0) -> str:
+    """Write a small uniform-random fixture with the ShapeNet-multimodal layout (class
+    ``car``, each object's class in its group attribute ``label``) to ``path`` (``.npz``
+    or ``.h5``)."""
+    from .modelnet import write_dataset
+
+    rng = np.random.default_rng(seed)
+    arrays: Dict[str, np.ndarray] = {}
+    attrs: Dict[str, Dict[str, str]] = {}
+    for i in range(num_objects):
+        obj = f"car/car_{i}"
+        attrs[obj] = {"label": "car"}
+        arrays[f"{obj}/points"] = rng.uniform(
+            -0.5, 0.5, (num_scans, num_points, 3)).astype(np.float32)
+        arrays[f"{obj}/depth_maps"] = (
+            rng.random((num_scans, depth_size, depth_size)) * 255).astype(np.float32)
+        arrays[f"{obj}/viewpoints"] = rng.uniform(-2.8, 2.8, (num_scans, 3)).astype(
+            np.float32)
+        arrays[f"{obj}/target_points"] = rng.uniform(
+            -0.5, 0.5, (num_points, 3)).astype(np.float32)
+    return write_dataset(path, arrays, attrs)
 
 
 # The shapes fixture: each class a parametric assembly of primitives with per-instance

@@ -19,6 +19,12 @@ from .encoders import (
     ViewAngleEmbedding,
 )
 from .rin import ComputeBlock, DenoiserBackbone, RCWBlock, ReadBlock, WriteBlock
+from .rotary import (
+    RotaryPartialPointCloudEncoder,
+    RotarySelfAttention,
+    RotaryTransformerLayer,
+    apply_rotary_pos_emb,
+)
 from .two_stream import MODALITY_TOKEN_IDS, TwoStreamDenoiser
 from .wrapper import BoundTwoStream
 
@@ -39,6 +45,10 @@ __all__ = [
     "ViewAngleEmbedding",
     "PartialPointCloudEncoder",
     "DepthMapEncoder",
+    "RotaryPartialPointCloudEncoder",
+    "RotarySelfAttention",
+    "RotaryTransformerLayer",
+    "apply_rotary_pos_emb",
     "ComputeBlock",
     "ReadBlock",
     "WriteBlock",

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 from contextlib import contextmanager
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -101,18 +101,37 @@ def fuse_ln_mlp_enabled() -> bool:
 
 
 _DROPOUT_GEN: Optional[torch.Generator] = None
+_DROPOUT_SHARD: Optional[Tuple[int, int]] = None
 
 
 @contextmanager
-def dropout_generator(generator: torch.Generator) -> Iterator[torch.Generator]:
+def dropout_generator(generator: torch.Generator, shard: Optional[Tuple[int, int]] = None
+                      ) -> Iterator[torch.Generator]:
     """Draw every train-mode dropout and CFG-dropout mask inside the block from
-    ``generator`` (on the activations' device)."""
-    global _DROPOUT_GEN
-    prev, _DROPOUT_GEN = _DROPOUT_GEN, generator
+    ``generator`` (on the activations' device). With ``shard = (i, n)`` the block runs
+    shard i of n equal shards of a global batch: each mask is drawn at the global batch
+    (n times its leading axis, every mask's batch axis) and shard i's rows are taken, so
+    that n processes seeded alike draw the masks that one process would draw for the
+    whole batch."""
+    global _DROPOUT_GEN, _DROPOUT_SHARD
+    prev = _DROPOUT_GEN, _DROPOUT_SHARD
+    _DROPOUT_GEN, _DROPOUT_SHARD = generator, shard
     try:
         yield generator
     finally:
-        _DROPOUT_GEN = prev
+        _DROPOUT_GEN, _DROPOUT_SHARD = prev
+
+
+def draw_sharded(draw: Callable[[tuple], torch.Tensor], shape,
+                 shard: Optional[Tuple[int, int]]) -> torch.Tensor:
+    """``draw(shape)``, or with ``shard = (i, n)`` shard i's rows of ``draw`` at n times
+    the leading axis."""
+    shape = tuple(shape)
+    if shard is None:
+        return draw(shape)
+    i, n = shard
+    rows = shape[0]
+    return draw((n * rows,) + shape[1:])[i * rows:(i + 1) * rows]
 
 
 def draw_uniform(shape, device) -> torch.Tensor:
@@ -120,7 +139,8 @@ def draw_uniform(shape, device) -> torch.Tensor:
     if _DROPOUT_GEN is None:
         raise RuntimeError("train-mode dropout draws from an explicit generator: run the "
                            "model inside pcdiff_torch.models.attention.dropout_generator(g)")
-    return torch.rand(shape, generator=_DROPOUT_GEN, device=device)
+    return draw_sharded(lambda s: torch.rand(s, generator=_DROPOUT_GEN, device=device),
+                        shape, _DROPOUT_SHARD)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
@@ -228,12 +248,17 @@ class CrossAttention(nn.Module):
         out = x_kv.to(self.dtype) @ layer.weight.to(self.dtype).t()
         return out if layer.bias is None else out + layer.bias.to(self.dtype)
 
-    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, q_ln: LayerNorm,
+    def forward(self, x_q: torch.Tensor, x_kv: torch.Tensor, q_ln: Optional[LayerNorm] = None,
                 kv_ln: Optional[LayerNorm] = None) -> torch.Tensor:
         """``x_q``/``x_kv`` are un-normalised; ``q_ln``/``kv_ln`` are the pre-LNs fused into
-        the projections (``kv_ln=None``: the kv side is projected as it is)."""
+        the projections (``kv_ln=None``: the kv side is projected as it is). Without
+        ``q_ln`` the three projections are dense and q is scaled after its projection,
+        as the JAX module's unfused branch does (the rotary encoder's ``decoder_attn``)."""
         scale = (self.dim // self.num_heads) ** -0.5
-        if x_q is x_kv and q_ln is kv_ln:
+        if q_ln is None:
+            q2 = self.wq(x_q) * scale
+            k2, v2 = self.wk(x_kv), self.wv(x_kv)
+        elif x_q is x_kv and q_ln is kv_ln:
             q2, k2, v2 = _ln_dense_multi(x_q, q_ln, [self.wq, self.wk, self.wv], self.dtype,
                                          out_scales=[scale, None, None])
         else:

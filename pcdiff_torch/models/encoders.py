@@ -32,7 +32,10 @@ __all__ = [
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: rows of an fp32 table, returned in ``dtype``."""
+    """flax ``nn.Embed``: rows of an fp32 table, returned in ``dtype``. An index in
+    [-n, 0) counts from the end and one outside [-n, n) gives a row of NaN, as
+    ``jnp.take``'s fill mode does there (an MVP label past ``num_classes``, say), where
+    ``F.embedding`` would raise (on the card, a device-side assert)."""
 
     def __init__(self, num_embeddings: int, dim: int, init_std: float = 0.02,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -45,7 +48,12 @@ class Embed(nn.Module):
         nn.init.normal_(self.weight, std=self.init_std, generator=generator)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids.long(), self.weight).to(self.dtype)
+        n = self.weight.shape[0]
+        ids = ids.long()
+        ids = torch.where(ids < 0, ids + n, ids)
+        inside = (ids >= 0) & (ids < n)
+        rows = F.embedding(ids.clamp(0, n - 1), self.weight)
+        return torch.where(inside[..., None], rows, float("nan")).to(self.dtype)
 
 
 class PatchConv(nn.Module):

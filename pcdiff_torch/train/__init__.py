@@ -9,6 +9,7 @@ from .state import (
     warmup_cosine_schedule,
 )
 from .step import (
+    average_gradients,
     draw_step_randoms,
     make_device_data_step,
     make_loss_fn,
@@ -29,4 +30,5 @@ __all__ = [
     "permute_points",
     "draw_step_randoms",
     "global_norm",
+    "average_gradients",
 ]

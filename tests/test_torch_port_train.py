@@ -1,11 +1,16 @@
 """The port's training step against the JAX package's, on the CPU in fp32.
 
-- The tiny denoiser's loss and its whole gradient tree: the JAX side is a copy of
-  ``make_loss_fn``'s composition (shared encoders, bootstrap without ``partial_pcd``,
+- The tiny denoiser's loss and its whole gradient tree, with shared encoders and with
+  ``share_cond_encoders=False`` (the encoders run by each forward): the JAX side is a copy
+  of ``make_loss_fn``'s composition (shared encoders, bootstrap without ``partial_pcd``,
   epsilon-MSE plus the gated chamfer) with dropout and CFG dropout off (encoders
   deterministic, ``cond_drop_prob=0``); t, noise and the coin are drawn from one key in
   ``make_loss_fn``'s split order and handed to the port; the port's gradients go through
-  ``flax_from_params`` and are compared leaf by leaf.
+  ``flax_from_params`` and are compared leaf by leaf. With the encoders deterministic the
+  two compositions compute one function (the bootstrap's conditioning is the same encoders
+  on the same inputs, without ``partial_pcd``, and carries no gradient), so the unshared
+  cases are held to the shared case's JAX program for the same coin; the port runs its
+  own unshared path. Its per-forward encoder runs and draws are checked on the port alone.
 - One AdamW step, the cosine and warmup-cosine schedules and an EMA update against optax
   and ``pcdiff.train.ema`` on the same gradients.
 - The port's own dropout and CFG-dropout masks (masks cannot be matched across
@@ -116,8 +121,14 @@ def _jax_loss(jmod, diff, use_sc):
     return loss
 
 
-@pytest.mark.parametrize("sc_prob", [1.0, 0.0])  # the coin, both ways
-def test_tiny_loss_and_gradients_match_jax(tiny, sc_prob):
+_JAX_RESULTS = {}
+
+
+# the coin both ways; the shared cases keep their ids
+@pytest.mark.parametrize("sc_prob,share", [(1.0, True), (0.0, True), (1.0, False),
+                                           (0.0, False)],
+                         ids=["1.0", "0.0", "unshared-1.0", "unshared-0.0"])
+def test_tiny_loss_and_gradients_match_jax(tiny, sc_prob, share):
     jmod, params, tmod, batch = tiny
     diff = jdiffusion("linear", 1000)
     key = jax.random.PRNGKey(7)
@@ -126,10 +137,13 @@ def test_tiny_loss_and_gradients_match_jax(tiny, sc_prob):
     noise = jax.random.normal(k_noise, batch["target"].shape)
     use_sc = bool(jax.random.uniform(k_sc, ()) < sc_prob)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    grad_fn = jax.jit(jax.value_and_grad(_jax_loss(jmod, diff, use_sc), has_aux=True))
-    (want_loss, want_terms), want_grads = grad_fn(params, jbatch, t, noise, jnp.asarray(True))
+    if use_sc not in _JAX_RESULTS:  # one JAX program a coin: both compositions' function
+        grad_fn = jax.jit(jax.value_and_grad(_jax_loss(jmod, diff, use_sc), has_aux=True))
+        _JAX_RESULTS[use_sc] = grad_fn(params, jbatch, t, noise, jnp.asarray(True))
+    (want_loss, want_terms), want_grads = _JAX_RESULTS[use_sc]
 
-    loss_fn = make_loss_fn(tmod, diffusion_from_betas("linear", 1000))
+    loss_fn = make_loss_fn(tmod, diffusion_from_betas("linear", 1000),
+                           share_cond_encoders=share)
     tmod.train()
     for m in tmod.active_modalities:  # encoders deterministic, as on the JAX side
         getattr(tmod, f"encoders_{m}").eval()
@@ -314,5 +328,37 @@ def test_train_step_runs_and_draws_from_its_generator():
         assert all(torch.isfinite(metrics[k]) for k in ("loss", "mse", "c_dist", "grad_norm"))
         moved = sum(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
         assert moved == len(before)
+        results.append([p.detach().clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*results))
+
+
+@pytest.mark.parametrize("share,include,want", [
+    (True, False, {"class": 1, "view": 1, "partial_pcd": 1, "depth": 1}),
+    (False, False, {"class": 2, "view": 2, "partial_pcd": 1, "depth": 2}),
+    (False, True, {"class": 2, "view": 2, "partial_pcd": 2, "depth": 2}),
+], ids=["shared", "unshared", "unshared-include-ppcd"])
+def test_unshared_step_runs_the_encoders_per_forward(share, include, want):
+    """On a coin step the unshared path runs the encoders in both forwards (the
+    bootstrap's without partial_pcd unless asked), in train mode, every draw from the
+    step's generator: two runs from one seed are equal, and the parameters move."""
+    results = []
+    for _ in range(2):
+        torch.manual_seed(0)
+        model = TTwoStream(**TINY, device="cpu")
+        for p in model.parameters():
+            p.data = 0.1 * torch.randn(p.shape)
+        calls = dict.fromkeys(model.active_modalities, 0)
+        for m in model.active_modalities:
+            enc = getattr(model, f"encoders_{m}")
+            enc.register_forward_hook(
+                lambda mod, args, out, m=m: calls.__setitem__(m, calls[m] + 1))
+        state = create_train_state(model, lr=1e-3, total_steps=10, device="cpu")
+        step = make_train_step(model, diffusion_from_betas(), self_conditioning_prob=1.0,
+                               bootstrap_include_partial_pcd=include,
+                               share_cond_encoders=share, device="cpu")
+        batch = synthetic_batch(np.random.default_rng(0), B, 32, 4, 32)
+        metrics = step(state, batch, torch.Generator().manual_seed(4), True)
+        assert calls == want and metrics["self_conditioned"] == 1.0
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
         results.append([p.detach().clone() for p in model.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*results))
