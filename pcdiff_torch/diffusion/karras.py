@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..parallel.xsp import gather_points, local_points
 from . import _noise
 from .gaussian import GaussianDiffusion, _device, _split_model_output, mean_flat
 
@@ -477,9 +478,19 @@ def karras_sample(diffusion, model, shape, steps: int,
     generator's, else the card). With guidance, ``model_kwargs`` must already be 2B-batched (conditional rows
     then zeroed rows) and ``shape`` is the undoubled [B, N, C]; ``init_state`` (a
     self-conditioning model's) covers the 2B rows. ``heun_parallel`` takes
-    ``parallel_options`` (``window``, ``tol``)."""
+    ``parallel_options`` (``window``, ``tol``; ``window_spec`` and ``mesh`` shard the
+    window over a mesh axis). A model whose x-stream is sharded over a mesh (its
+    ``point_mesh``, :mod:`pcdiff_torch.parallel.xsp`) gets this rank's points of x_T,
+    which is drawn whole from ``generator`` (seeded alike on every rank), and the cloud is
+    put back together once, at the end."""
+    points = getattr(model, "point_mesh", None)
+    if points is not None and (progressive or sampler == "ancestral" or s_churn != 0.0):
+        # a draw inside the solver would be this rank's shape, not the whole cloud's
+        raise NotImplementedError("a model with sharded points samples with the churn-free "
+                                  "solvers and without progressive")
     sigmas = get_sigmas_karras(steps, sigma_min, sigma_max, rho)
     x_T = _noise.normal(shape, generator, _device(generator, device)) * sigma_max
+    x_T = local_points(x_T, points)
     guided = guidance_scale not in (0.0, 1.0)
 
     def make_base(kw):
@@ -511,19 +522,21 @@ def karras_sample(diffusion, model, shape, steps: int,
             make_base(half_model_kwargs(model_kwargs, b)), make_denoise(model_kwargs), x_T,
             sigmas, state=init_state, guidance_interval=guidance_interval, sampler=sampler,
             cond_batch=b, progressive=progressive)
-        return _unscale(diffusion, out, progressive)
-
-    if sampler == "heun_parallel":
+    elif sampler == "heun_parallel":
         from .parallel import solve_parallel
 
         if progressive:
             raise NotImplementedError("heun_parallel has no progressive mode")
         out = solve_parallel(make_denoise, model_kwargs, x_T, sigmas, guided=guided,
                              state=init_state, s_churn=s_churn,
-                             parallel_options=parallel_options)
+                             parallel_options=parallel_options, points=points)
     else:
         kwargs = dict(state=init_state, progressive=progressive, generator=generator)
         if sampler != "ancestral":
             kwargs.update(s_churn=s_churn, s_tmin=s_tmin, s_tmax=s_tmax, s_noise=s_noise)
         out = _SAMPLERS[sampler](make_denoise(model_kwargs), x_T, sigmas, **kwargs)
+    if points is not None:
+        out["x"] = gather_points(out["x"], points)
+        if out.get("pred_xstart") is not None:
+            out["pred_xstart"] = gather_points(out["pred_xstart"], points)
     return _unscale(diffusion, out, progressive)

@@ -16,15 +16,24 @@ A CFG denoiser (``guided_denoise_fn``) doubles those rows into a conditional and
 unconditional group, so a position's state of ``groups * B`` rows is laid out group by
 group across the window (``groups`` = 2 under CFG, else 1). The frontier is read on the
 host once an iteration.
+
+Across ranks (``window_spec``, the name of a mesh axis, with ``mesh``): each rank of that
+axis evaluates its ``W / n`` consecutive window positions, a denoiser call pair over
+``W / n * B`` rows, and the drifts, the denoised and the states are put back together
+(:func:`pcdiff_torch.parallel.mesh.gather_shares`), so that every rank holds the whole
+window and takes the same steps. With the x-stream's points sharded too (``points``, a
+model's ``point_mesh``), the Picard error sums its squares over the points' axis before
+the tolerance test, so that every rank accepts the same positions.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import axis_rank, gather_shares, sum_partials
 from .karras import DenoiseFn, to_d
 
 __all__ = ["sample_heun_parallel", "solve_parallel", "window_model_kwargs"]
@@ -74,25 +83,41 @@ def _rows(b: int, v: torch.Tensor) -> torch.Tensor:
     return v.repeat_interleave(b)
 
 
+def _window_shards(window_spec: Optional[str], mesh: Any) -> Tuple[Optional[str], int, int]:
+    """(the mesh axis ``window_spec`` names, this rank's index on it, its size); (None, 0,
+    1) without ``window_spec``."""
+    if window_spec is None:
+        return None, 0, 1
+    if mesh is None:
+        raise ValueError("window_spec names an axis of a mesh: pass the mesh")
+    if window_spec not in mesh.mesh_dim_names:
+        raise ValueError(f"the mesh has no axis {window_spec!r}: {mesh.mesh_dim_names}")
+    return (window_spec,) + axis_rank(mesh, window_spec)
+
+
 def sample_heun_parallel(denoise_fn: DenoiseFn, x_T: torch.Tensor, sigmas: np.ndarray, *,
                          state: Any = None, window: int = 8, tol: float = 1e-3,
-                         s_churn: float = 0.0, groups: int = 1, window_spec: Any = None,
-                         mesh: Any = None) -> Dict[str, Any]:
+                         s_churn: float = 0.0, groups: int = 1,
+                         window_spec: Optional[str] = None, mesh: Any = None,
+                         points: Any = None) -> Dict[str, Any]:
     """The Picard-parallel Heun solve of ``sample_heun``'s grid from ``x_T`` [B, ...].
-    ``denoise_fn`` takes ``min(window, n) * B`` rows (see the module's notes), ``state``
-    (a tensor of ``groups * B`` rows, or None) is one position's state. Returns ``x``,
-    ``pred_xstart``, ``state`` and ``parallel_iters`` (the sequential rounds taken, at
-    most n). At ``tol > 0`` the state at accepted positions lags one iteration, as in the
-    JAX package; at ``tol = 0`` it is exact. Sharding the window across cards
-    (``window_spec``, ``mesh``) is not ported."""
-    if window_spec is not None or mesh is not None:
-        raise NotImplementedError("sharding the window across cards is not ported yet")
+    ``denoise_fn`` takes ``min(window, n) / r * B`` rows (see the module's notes; r is the
+    size of the mesh axis ``window_spec`` names, 1 without it), ``state`` (a tensor of
+    ``groups * B`` rows, or None) is one position's state; ``points`` is the (mesh,
+    axis) that shard x's points, or None. Returns ``x``, ``pred_xstart``, ``state`` and
+    ``parallel_iters`` (the sequential rounds taken, at most n). At ``tol > 0`` the state
+    at accepted positions lags one iteration, as in the JAX package; at ``tol = 0`` it is
+    exact."""
+    axis, rank, ranks = _window_shards(window_spec, mesh)
     if s_churn != 0.0:
         raise NotImplementedError(
             "parallel Heun requires s_churn=0 (stochastic churn would decouple the parallel "
             "and sequential trajectories)")
     n = len(sigmas) - 1
     w = min(window, n)
+    if w % ranks:
+        raise ValueError(f"a window of {w} positions does not split over {ranks} ranks")
+    wl = w // ranks  # this rank's positions: [rank * wl, (rank + 1) * wl)
     b = x_T.shape[0]
     dev = x_T.device
     sig = torch.as_tensor(np.asarray(sigmas, dtype=np.float32), device=dev)
@@ -111,12 +136,13 @@ def sample_heun_parallel(denoise_fn: DenoiseFn, x_T: torch.Tensor, sigmas: np.nd
     while p < n:
         nv = min(w, n - p)
         cidx = torch.clamp(torch.arange(p, p + w, device=dev), max=n - 1)
-        s_w, sn_w = sigma_i[cidx], sigma_next[cidx]
+        lidx = cidx[rank * wl:(rank + 1) * wl]
+        s_w, sn_w = sigma_i[lidx], sigma_next[lidx]
         is_last = sn_w == 0.0
         safe_next = torch.where(is_last, torch.ones_like(sn_w), sn_w)
         dt = sn_w - s_w
-        x = X[cidx].reshape((w * b,) + tuple(x_T.shape[1:]))
-        st = None if S is None else _to_window(S[cidx], groups)
+        x = X[lidx].reshape((wl * b,) + tuple(x_T.shape[1:]))
+        st = None if S is None else _to_window(S[lidx], groups)
 
         s_rows, next_rows = _rows(b, s_w), _rows(b, safe_next)
         dt_rows = _rows(b, dt).reshape(lift)
@@ -128,17 +154,29 @@ def sample_heun_parallel(denoise_fn: DenoiseFn, x_T: torch.Tensor, sigmas: np.nd
         drift = torch.where(_rows(b, is_last).reshape(lift), d * dt_rows,
                             (d + d_2) / 2.0 * dt_rows)
 
-        drift = drift.reshape((w,) + tuple(x_T.shape))[:nv]
-        new_x = X[p].unsqueeze(0) + torch.cumsum(drift, dim=0)  # x_{p+1..p+nv}
-        old_x = X[p + 1:p + 1 + nv]
-        err = ((new_x - old_x) ** 2).reshape(nv, -1).mean(dim=1)
-        X[p + 1:p + 1 + nv] = new_x
-        Dn[p:p + nv] = denoised.reshape((w,) + tuple(x_T.shape))[:nv]
+        drift = drift.reshape((wl,) + tuple(x_T.shape))
+        denoised = denoised.reshape((wl,) + tuple(x_T.shape))
         if S is not None:
             # the last step is a plain Euler step: it keeps the predictor's state
-            keep1 = is_last.reshape((w,) + (1,) * state.dim())
-            st_out = torch.where(keep1, _from_window(st1, w, groups),
-                                 _from_window(st2, w, groups))
+            keep1 = is_last.reshape((wl,) + (1,) * state.dim())
+            st_out = torch.where(keep1, _from_window(st1, wl, groups),
+                                 _from_window(st2, wl, groups))
+        if axis is not None:  # every rank's positions, on every rank
+            drift, denoised = (gather_shares(t, mesh, axis, dim=0) for t in (drift, denoised))
+            if S is not None:
+                st_out = gather_shares(st_out, mesh, axis, dim=0)
+
+        drift = drift[:nv]
+        new_x = X[p].unsqueeze(0) + torch.cumsum(drift, dim=0)  # x_{p+1..p+nv}
+        old_x = X[p + 1:p + 1 + nv]
+        sq = ((new_x - old_x) ** 2).reshape(nv, -1)
+        if points is None:
+            err = sq.mean(dim=1)
+        else:  # the mean over the whole cloud's points
+            err = sum_partials(sq.sum(dim=1), *points) / (sq.shape[1] * axis_rank(*points)[1])
+        X[p + 1:p + 1 + nv] = new_x
+        Dn[p:p + nv] = denoised[:nv]
+        if S is not None:
             S[p + 1:p + 1 + nv] = st_out[:nv].to(S.dtype)
 
         # the frontier is exact now; advance past the positions that also converged
@@ -157,13 +195,17 @@ def solve_parallel(make_denoise: Callable[[Dict[str, Any]], DenoiseFn],
                    model_kwargs: Optional[Dict[str, Any]], x_T: torch.Tensor,
                    sigmas: np.ndarray, *, guided: bool, state: Any = None,
                    s_churn: float = 0.0,
-                   parallel_options: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+                   parallel_options: Optional[Dict[str, Any]] = None,
+                   points: Any = None) -> Dict[str, Any]:
     """``sample_heun_parallel`` over the denoiser ``make_denoise`` builds from the model
-    kwargs tiled for the window (``parallel_options``: ``window``, default 8, ``tol``);
-    ``guided``: the denoiser runs CFG over kwargs of two row groups."""
+    kwargs tiled for this rank's window positions (``parallel_options``: ``window``,
+    default 8, ``tol``, ``window_spec``, ``mesh``); ``guided``: the denoiser runs CFG over
+    kwargs of two row groups; ``points``: the model's ``point_mesh``."""
     opts = dict(parallel_options or {})
     window = min(int(opts.pop("window", 8)), len(sigmas) - 1)
+    ranks = _window_shards(opts.get("window_spec"), opts.get("mesh"))[2]
     groups = 2 if guided else 1
-    denoise = make_denoise(window_model_kwargs(model_kwargs, x_T.shape[0], window, groups))
+    denoise = make_denoise(window_model_kwargs(model_kwargs, x_T.shape[0],
+                                               max(window // ranks, 1), groups))
     return sample_heun_parallel(denoise, x_T, sigmas, state=state, s_churn=s_churn,
-                                window=window, groups=groups, **opts)
+                                window=window, groups=groups, points=points, **opts)

@@ -6,8 +6,10 @@ over fixed-size chunks, the last padded by repeating its last cloud, since FPS s
 depend on a cloud's position in its chunk; it returns the fc2 features and the
 probabilities. ``dtype=np.float64`` runs the forward in fp64, the canonical mode for
 comparing P-FID across implementations: fp32 products are reduction-order sensitive, and
-the ill-conditioned Frechet square root amplifies that. The JAX package's data sharding
-over a mesh is not part of this module.
+the ill-conditioned Frechet square root amplifies that. With a ``mesh``, each rank of its
+``data`` axis runs its equal share of every chunk's rows (FPS starting each cloud at its
+index in the whole chunk, as one process does), and the features and probabilities are
+put back together on every rank, as the JAX package shards each chunk over ``data``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..parallel.mesh import DATA_AXIS, axis_rank, gather_shares
 from .pointnet2 import PointNet2ClassifierSSG, import_pointnet2_torch_state
 
 __all__ = ["normalize_point_clouds", "PointNetClassifier"]
@@ -40,7 +43,8 @@ class PointNetClassifier:
     :func:`~pcdiff_torch.evals.pointnet2.pointnet2_state_from_flax` also gives it) or from
     the torch checkpoint at ``torch_checkpoint_path`` (its ``model_state_dict`` if it has
     one). ``dtype`` is ``np.float32`` (the default) or ``np.float64``; the model runs on
-    ``device``, the card unless the caller asks for the CPU."""
+    ``device``, the card unless the caller asks for the CPU. ``mesh`` shards each chunk's
+    rows over its ``data`` axis; ``batch_size`` must divide over it."""
 
     def __init__(
         self,
@@ -51,6 +55,7 @@ class PointNetClassifier:
         num_class: int = 40,
         dtype=None,
         device="cuda",
+        mesh=None,
     ):
         self.device = resolve_device(device)
         if state_dict is None:
@@ -68,12 +73,23 @@ class PointNetClassifier:
         model.load_state_dict(import_pointnet2_torch_state(state_dict), strict=True)
         self.model = model.to(device=self.device, dtype=_TORCH_DTYPES[self.dtype]).eval()
         self.batch_size = batch_size
+        self.mesh = mesh
+        self._rank, self._ranks = axis_rank(mesh, DATA_AXIS)
+        if batch_size % self._ranks:
+            raise ValueError(f"batch_size {batch_size} must divide over the mesh's data "
+                             f"axis ({self._ranks})")
 
     @torch.no_grad()
     def _forward(self, chunk: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        log_probs, _, feats = self.model(torch.from_numpy(chunk).to(self.device),
-                                         features=True)
-        return feats.cpu().numpy(), log_probs.exp().cpu().numpy()
+        per = len(chunk) // self._ranks
+        rows = torch.from_numpy(chunk[self._rank * per:(self._rank + 1) * per])
+        log_probs, _, feats = self.model(rows.to(self.device), features=True,
+                                         row_offset=self._rank * per)
+        probs = log_probs.exp()
+        if self.mesh is not None:
+            feats, probs = (gather_shares(t, self.mesh, DATA_AXIS, dim=0)
+                            for t in (feats, probs))
+        return feats.cpu().numpy(), probs.cpu().numpy()
 
     def features_and_preds(self, point_clouds: np.ndarray
                            ) -> Tuple[np.ndarray, np.ndarray]:

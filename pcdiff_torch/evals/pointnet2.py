@@ -68,12 +68,13 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
 
 def sample_and_group(npoint: int, radius: float, nsample: int, xyz: torch.Tensor,
                      points: Optional[torch.Tensor], deterministic: bool = True,
-                     generator: Optional[torch.Generator] = None
+                     generator: Optional[torch.Generator] = None, row_offset: int = 0
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """FPS centroids [B, npoint, 3] and their ball-query neighbourhoods [B, npoint,
-    nsample, 3 (+ D)]: coordinates relative to the centroid, then ``points``' features."""
+    nsample, 3 (+ D)]: coordinates relative to the centroid, then ``points``' features.
+    ``row_offset``: the rows' place in the whole batch, where FPS starts."""
     fps_idx = farthest_point_sample(xyz, npoint, deterministic=deterministic,
-                                    generator=generator)
+                                    generator=generator, row_offset=row_offset)
     new_xyz = index_points(xyz, fps_idx)  # [B, S, 3]
     idx = query_ball_point(radius, nsample, xyz, new_xyz)
     grouped_xyz_norm = index_points(xyz, idx) - new_xyz[:, :, None, :]
@@ -171,21 +172,23 @@ class PointNetSetAbstraction(nn.Module):
         self.group_all = group_all
         self.mlp_convs, self.mlp_bns = _stack(in_channel, mlp, 2, device)
 
-    def group(self, xyz: torch.Tensor, points: Optional[torch.Tensor]
+    def group(self, xyz: torch.Tensor, points: Optional[torch.Tensor], row_offset: int = 0
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(new_xyz [B, S, 3], grouped [B, S, K, C_in])."""
+        """(new_xyz [B, S, 3], grouped [B, S, K, C_in]); ``row_offset`` as in
+        :func:`sample_and_group`."""
         if self.group_all:
             return sample_and_group_all(xyz, points)
-        return sample_and_group(self.npoint, self.radius, self.nsample, xyz, points)
+        return sample_and_group(self.npoint, self.radius, self.nsample, xyz, points,
+                                row_offset=row_offset)
 
     def pool(self, grouped: torch.Tensor) -> torch.Tensor:
         """The shared stack over [B, S, K, C_in], then the max over K -> [B, S, mlp[-1]]."""
         return _run_stack(grouped, self.mlp_convs, self.mlp_bns).amax(dim=2)
 
-    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor]
+    def forward(self, xyz: torch.Tensor, points: Optional[torch.Tensor], row_offset: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz [B, N, 3], points [B, N, D] or None -> (new_xyz, features [B, S, mlp[-1]])."""
-        new_xyz, grouped = self.group(xyz, points)
+        new_xyz, grouped = self.group(xyz, points, row_offset)
         return new_xyz, self.pool(grouped)
 
 
@@ -274,13 +277,14 @@ class PointNet2ClassifierSSG(nn.Module):
         feats = self.bn2(self.fc2(x))
         return F.log_softmax(self.fc3(torch.relu(feats)), dim=-1), feats
 
-    def forward(self, xyz: torch.Tensor, features: bool = False):
+    def forward(self, xyz: torch.Tensor, features: bool = False, row_offset: int = 0):
         """xyz [B, N, 3 (+3 normals)] channels-last -> (log_probs, sa3's features
-        [B, 1, 1024 w][, fc2 features [B, 256 w]])."""
+        [B, 1, 1024 w][, fc2 features [B, 256 w]]). ``row_offset``: the rows' place in the
+        whole batch (a rank's share of one), where each cloud's FPS starts."""
         norm = xyz[..., 3:] if self.normal_channel else None
         xyz = xyz[..., :3]
-        l1_xyz, l1 = self.sa1(xyz, norm)
-        l2_xyz, l2 = self.sa2(l1_xyz, l1)
+        l1_xyz, l1 = self.sa1(xyz, norm, row_offset)
+        l2_xyz, l2 = self.sa2(l1_xyz, l1, row_offset)
         _, l3 = self.sa3(l2_xyz, l2)
         log_probs, feats = self.head(l3)
         if features:

@@ -18,18 +18,20 @@ __all__ = ["farthest_point_sample", "fps"]
 @torch.no_grad()
 def farthest_point_sample(points: torch.Tensor, num_samples: int, *,
                           generator: Optional[torch.Generator] = None,
-                          deterministic: bool = False) -> torch.Tensor:
+                          deterministic: bool = False, row_offset: int = 0) -> torch.Tensor:
     """Indices [B, num_samples] (int64) of farthest points of ``points`` [B, N, C].
 
     ``deterministic=True`` (or no ``generator``) seeds batch element b at point index
-    b mod N, the reference's evaluation mode; otherwise ``generator`` draws each start.
+    (``row_offset`` + b) mod N, the reference's evaluation mode (``row_offset``: the
+    rows' place in a larger batch, as a rank's share of one); otherwise ``generator``
+    draws each start.
     """
     b, n, c = points.shape
     if points.dtype not in (torch.float32, torch.float64):
         points = points.float()
     dev = points.device
     if deterministic or generator is None:
-        farthest = torch.arange(b, device=dev) % n
+        farthest = (torch.arange(b, device=dev) + row_offset) % n
     else:
         farthest = torch.randint(0, n, (b,), generator=generator, device=dev)
     rows = torch.arange(b, device=dev)

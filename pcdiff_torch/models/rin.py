@@ -10,16 +10,20 @@ Python loop: the JAX package's ``scan_blocks`` exists only to cut XLA compile ti
 no counterpart. The ``*attention_fn`` arguments are the JAX package's hooks (the seam of
 :mod:`pcdiff.parallel.xsp`): read and write select the interface attentions, compute the
 latent self-attentions; the default, :func:`~.attention.dot_product_attention`, keeps the
-folded-head kernel.
+folded-head kernel. Under a read hook bound to a mesh
+(:func:`pcdiff_torch.parallel.xsp.point_mesh`), x arrives as this rank's ``num_x / n``
+points, and everything on the x-stream but the read and write attentions runs on them.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
 
+from ..parallel.mesh import axis_rank
+from ..parallel.xsp import point_mesh
 from .attention import AttentionFn, CrossAttention, Dense, LayerNorm, Mlp, dot_product_attention
 from .embeddings import timestep_embedding
 
@@ -125,6 +129,11 @@ class DenoiserBackbone(nn.Module):
                  compute_attention_fn: AttentionFn = dot_product_attention):
         super().__init__()
         self.num_z, self.num_x, self.z_dim = num_z, num_x, z_dim
+        self.point_mesh = point_mesh(read_attention_fn, write_attention_fn)
+        shards = axis_rank(*self.point_mesh)[1] if self.point_mesh else 1
+        if num_x % shards:
+            raise ValueError(f"{num_x} points do not split over {shards} ranks")
+        self.local_x = num_x // shards  # the points a call sees on this rank
         self.num_blocks = num_blocks
         self.dtype = dtype
         hidden = int(z_dim * mlp_ratio)
@@ -144,14 +153,26 @@ class DenoiserBackbone(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         nn.init.normal_(self.z_init, std=0.02, generator=generator)
 
+    def point_parameters(self) -> Iterator[nn.Parameter]:
+        """The parameters that act on the points' rows: with the points sharded, each
+        rank's gradient of these is its rows' part
+        (:func:`pcdiff_torch.parallel.xsp.sum_point_gradients`)."""
+        mods = [self.input_proj, self.ln_pre, self.ln_post, self.output_proj]
+        for i in range(self.num_blocks):
+            blk = getattr(self, f"block_{i}")
+            mods += [blk.read.norm_x, blk.read.attn.wk, blk.read.attn.wv, blk.write.attn.wq,
+                     blk.write.attn.proj, blk.write.norm_x1, blk.write.norm_x2, blk.write.mlp]
+        for m in mods:
+            yield from m.parameters()
+
     def forward(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 prev_latent: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: [B, num_x, C_in], t: [B], cond: [B, num_cond, z_dim], prev_latent:
         [B, num_z + num_cond + 1, z_dim] or None. Returns (x_denoised fp32, z)."""
         b, num_x, _ = x.shape
-        if num_x != self.num_x:
-            raise ValueError(f"expected {self.num_x} points, got {num_x}")
+        if num_x != self.local_x:
+            raise ValueError(f"expected {self.local_x} points, got {num_x}")
         num_latent = self.num_z + cond.shape[1] + 1
         if prev_latent is None:
             prev_latent = torch.zeros(b, num_latent, self.z_dim, dtype=self.dtype,

@@ -182,9 +182,10 @@ class TwoStreamDenoiser(nn.Module):
                 cond_tokens: Optional[torch.Tensor] = None,
                 presence: Optional[Dict[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: [B, num_points, C] channels-last. Returns (eps_hat, latent)."""
-        if x.shape[1] != self.num_points:
-            raise ValueError(f"input point cloud must have {self.num_points} points, "
+        """x: [B, num_points, C] channels-last (this rank's num_points / n under sharded
+        read and write hooks). Returns (eps_hat, latent)."""
+        if x.shape[1] != self.backbone.local_x:
+            raise ValueError(f"input point cloud must have {self.backbone.local_x} points, "
                              f"got {x.shape[1]}")
         if cond_tokens is None:
             cond_tokens = self.encode_conditioning(

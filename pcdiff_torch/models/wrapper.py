@@ -31,6 +31,12 @@ class BoundTwoStream:
         self.module = module
         self.calls = 0
 
+    @property
+    def point_mesh(self):
+        """(mesh, axis) that shard the module's x-stream, or None
+        (:func:`pcdiff_torch.parallel.xsp.point_mesh`)."""
+        return self.module.backbone.point_mesh
+
     def __call__(self, x, t, **kwargs):
         self.calls += 1
         return self.module(x, t, **kwargs)

@@ -8,18 +8,23 @@ rebuilt when the source or any header of ``csrc`` (``*.cuh``, on the include pat
 newer than the library. Importing this module builds nothing and needs no ``nvcc``: only
 :func:`library` does, and only the CUDA branch of a kernel wrapper calls it. Each source
 has its own lock, so calls of :func:`library` for several sources from several threads run
-their ``nvcc``s at once.
+their ``nvcc``s at once. Across processes (several ranks on one card reach their first
+launch together) a file lock a source in ``BUILD_DIR`` guards the check and the build: the
+first process builds, the others wait for it and then load its library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
+from typing import Iterator
 
 __all__ = ["library", "stale", "stream", "needs_grad", "build_seconds", "build_log",
            "BUILD_DIR", "CSRC_DIR"]
@@ -87,6 +92,19 @@ def stale(lib: Path, sources) -> bool:
     return not lib.exists() or any(lib.stat().st_mtime < s.stat().st_mtime for s in sources)
 
 
+@contextmanager
+def _file_lock(name: str) -> Iterator[None]:
+    """An exclusive ``flock`` on ``BUILD_DIR/lib<name>.lock``, held by one process at a
+    time (the kernel drops it when its holder exits, however it exits)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"lib{name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded ``lib<name>.so``, built from ``csrc/<name>.cu`` if missing or stale: every
     ``csrc/*.cuh`` counts as a dependency of every source."""
@@ -96,8 +114,9 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             src, path = CSRC_DIR / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
-            if stale(path, [src, *sorted(CSRC_DIR.glob("*.cuh"))]):
-                _compile(name, src, path)
-            lib = ctypes.CDLL(str(path))
+            with _file_lock(name):
+                if stale(path, [src, *sorted(CSRC_DIR.glob("*.cuh"))]):
+                    _compile(name, src, path)
+                lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib

@@ -1,13 +1,18 @@
-"""Data parallelism on ``torch.distributed``: the process group and the device mesh."""
+"""Parallelism on ``torch.distributed``: the process group, the device mesh and its
+collectives, and x-stream sequence parallelism (:mod:`.xsp`)."""
 
 from .distributed import host_mean, initialize, is_lead_host
 from .mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    axis_rank,
     batch_sharding,
     fold_in_process,
+    gather_shares,
+    local_share,
     local_batch_slice,
     make_mesh,
+    model_group,
     replicate,
     replicated_sharding,
     shard_batch,
@@ -26,4 +31,8 @@ __all__ = [
     "replicate",
     "local_batch_slice",
     "fold_in_process",
+    "model_group",
+    "axis_rank",
+    "local_share",
+    "gather_shares",
 ]

@@ -1,4 +1,5 @@
-"""The device mesh and the data-parallel helpers.
+"""The device mesh and the data-parallel helpers, and the collectives of
+the model axis.
 
 Counterpart of :mod:`pcdiff.parallel.mesh` in PyTorch's idiom: a ``(data, model)``
 :class:`torch.distributed.device_mesh.DeviceMesh` over the process group (one card a
@@ -8,11 +9,21 @@ over the data group (:func:`pcdiff_torch.train.average_gradients`). The mesh nee
 started process group (:func:`pcdiff_torch.parallel.initialize`); without one (a world of
 one) :func:`make_mesh` returns None and every helper treats this process as the whole
 data axis.
+
+The model axis splits one replicated computation into equal shares (the x-stream's points
+under :mod:`pcdiff_torch.parallel.xsp`, heads, window positions). Its collectives use only
+``all_reduce`` (SUM, MAX) and ``broadcast``: a gather is a SUM over a zero-filled buffer.
+On one card several ranks can only form a gloo group, and gloo takes CUDA tensors for
+those two and not for ``all_gather``. Each collective that carries a gradient is an
+autograd Function whose backward gives the dense gradient when every rank computes the
+same loss: a replicated input used against a shard gets its gradient summed over the axis
+(:func:`sum_gradients`), and a sum of partials, whose output is replicated, passes its
+gradient through unchanged (:func:`sum_partials`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -25,6 +36,13 @@ __all__ = [
     "batch_sharding",
     "replicated_sharding",
     "data_group",
+    "model_group",
+    "axis_rank",
+    "sum_partials",
+    "sum_gradients",
+    "max_over",
+    "local_share",
+    "gather_shares",
     "shard_batch",
     "replicate",
     "local_batch_slice",
@@ -73,6 +91,93 @@ def replicated_sharding(mesh) -> tuple:
 def data_group(mesh):
     """The process group of the mesh's data axis, or None without a mesh."""
     return None if mesh is None else mesh.get_group(DATA_AXIS)
+
+
+def model_group(mesh):
+    """The process group of the mesh's model axis, or None without a mesh."""
+    return None if mesh is None else mesh.get_group(MODEL_AXIS)
+
+
+def axis_rank(mesh, axis: str) -> Tuple[int, int]:
+    """(this rank's index along ``axis``, the axis' size); (0, 1) without a mesh."""
+    if mesh is None:
+        return 0, 1
+    return mesh.get_local_rank(axis), mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def _all_reduce(x: torch.Tensor, mesh, axis: str, op) -> torch.Tensor:
+    import torch.distributed as dist
+
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=op, group=mesh.get_group(axis))
+    return out
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        import torch.distributed as dist
+
+        return _all_reduce(x, mesh, axis, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _SumGradients(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        return _all_reduce(grad, ctx.mesh, ctx.axis, dist.ReduceOp.SUM), None, None
+
+
+def sum_partials(x: torch.Tensor, mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The sum over ``axis`` of each rank's partial ``x`` (``psum``); its output is
+    replicated, so its gradient reaches each partial unchanged."""
+    return _SumPartials.apply(x, mesh, axis)
+
+
+def sum_gradients(x: torch.Tensor, mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """``x`` itself, replicated over ``axis`` and about to be used against this rank's
+    shard: its gradient is summed over ``axis``, so that every rank holds the dense one."""
+    return _SumGradients.apply(x, mesh, axis)
+
+
+def max_over(x: torch.Tensor, mesh, axis: str = MODEL_AXIS) -> torch.Tensor:
+    """The elementwise max over ``axis`` (``pmax``), without a gradient."""
+    import torch.distributed as dist
+
+    return _all_reduce(x, mesh, axis, dist.ReduceOp.MAX)
+
+
+def local_share(x: torch.Tensor, mesh, axis: str = MODEL_AXIS, dim: int = 1
+                ) -> torch.Tensor:
+    """This rank's equal share along ``dim`` of ``x``, which is replicated over ``axis``;
+    the share's gradient is summed over ``axis`` into the whole ``x``'s."""
+    i, n = axis_rank(mesh, axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} along dim {dim} do not split over {n} ranks")
+    per = x.shape[dim] // n
+    return sum_gradients(x, mesh, axis).narrow(dim, i * per, per)
+
+
+def gather_shares(x: torch.Tensor, mesh, axis: str = MODEL_AXIS, dim: int = 1
+                  ) -> torch.Tensor:
+    """The inverse of :func:`local_share`: every rank's share along ``dim``, in rank
+    order, on every rank (a SUM over a zero-filled buffer)."""
+    i, n = axis_rank(mesh, axis)
+    shape = list(x.shape)
+    before, after = list(shape), list(shape)
+    before[dim], after[dim] = i * shape[dim], (n - 1 - i) * shape[dim]
+    buf = torch.cat([x.new_zeros(before), x, x.new_zeros(after)], dim=dim)
+    return sum_partials(buf, mesh, axis)
 
 
 def _data_rank(mesh) -> tuple:

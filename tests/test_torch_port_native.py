@@ -2,6 +2,8 @@
 
 - ``_native.stale``: a library is rebuilt when its source or a header is newer, and only
   then, so an edit to ``csrc/attention_fwd.cuh`` rebuilds the three libraries that include it.
+  Two processes that reach a stale library at once build it once: one builds under the
+  build directory's file lock, the other waits and loads its library.
 - The attention sources: K1 (``attention_mh.cu``), K7 (``attention.cu``) and the ladder K8
   (``attention_ladder.cu``) include the one bf16 loop of ``attention_fwd.cuh``; neither K1 nor
   the ladder has a key loop of its own, and K7's own loop belongs to its fp32 kernel alone:
@@ -39,6 +41,55 @@ from pcdiff_torch.scripts import exp_cuts, k3_wide_cuts, k7_cuts, ln_bwd_cuts, m
 ATTENTION_SOURCES = ("attention_mh", "attention", "attention_ladder")
 # a loop bounded by the key count (the K/V tile loop of an attention kernel)
 KEY_LOOP = re.compile(r"\bfor\s*\([^;]*;[^;]*\bnk\b")
+
+
+STUB_COMPILER = """#!/usr/bin/env python3
+import subprocess, sys, time
+args = sys.argv[1:]
+with open(sys.argv[0] + ".builds", "a") as f:
+    f.write("build\\n")
+time.sleep(1.0)  # long enough for the other process to reach the library
+out = args[args.index("-o") + 1]
+subprocess.run(["g++", "-shared", "-fPIC", "-x", "c++", "-o", out, args[-1]], check=True)
+"""
+
+
+def _load_stub(csrc, build, compiler, loaded):
+    """In a process of its own: ``library("stub")`` from ``csrc`` into ``build`` with the
+    stub compiler (it counts its builds, then builds with g++); writes what the loaded
+    library returns."""
+    from pathlib import Path
+
+    _native.CSRC_DIR, _native.BUILD_DIR = Path(csrc), Path(build)
+    _native._nvcc = lambda: compiler
+    lib = _native.library("stub")
+    with open(loaded, "w") as f:
+        f.write(str(lib.stub_answer()))
+
+
+def test_two_processes_build_a_stale_library_once(tmp_path):
+    import multiprocessing
+    import shutil
+
+    if shutil.which("g++") is None:
+        pytest.skip("the stub compiler builds with g++")
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "stub.cu").write_text('extern "C" int stub_answer() { return 42; }\n')
+    compiler = tmp_path / "nvcc"
+    compiler.write_text(STUB_COMPILER)
+    compiler.chmod(0o755)
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_load_stub, args=(str(csrc), str(build), str(compiler),
+                                                  str(tmp_path / f"loaded{i}")))
+             for i in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=120)
+    assert [p.exitcode for p in procs] == [0, 0]
+    assert (tmp_path / "nvcc.builds").read_text().splitlines() == ["build"]
+    assert [(tmp_path / f"loaded{i}").read_text() for i in range(2)] == ["42", "42"]
 
 
 def _touch(path, mtime):

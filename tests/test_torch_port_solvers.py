@@ -349,9 +349,11 @@ def _guided(bound, diffusion, kwargs):
 def test_heun_parallel_refuses_what_it_lacks():
     x = torch.zeros(SHAPE)
     sigmas = tk.get_sigmas_karras(4, 1e-3, 10.0)
-    for kw in (dict(s_churn=1.0), dict(window_spec="data")):
-        with pytest.raises(NotImplementedError):
-            sample_heun_parallel(lambda x, s, st: (x, st), x, sigmas, **kw)
+    with pytest.raises(NotImplementedError):
+        sample_heun_parallel(lambda x, s, st: (x, st), x, sigmas, s_churn=1.0)
+    # the window shards over a mesh's axis: a spec needs the mesh it names
+    with pytest.raises(ValueError, match="mesh"):
+        sample_heun_parallel(lambda x, s, st: (x, st), x, sigmas, window_spec="data")
 
 
 @pytest.mark.parametrize("entry", ["karras_sample", "p_sample_loop", "ddim_sample_loop"])
