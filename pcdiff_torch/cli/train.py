@@ -14,7 +14,10 @@ give NaN class tokens, as in the JAX package), ``multimodal`` and ``synthetic``.
 dataset lives on the device when ``train.device_data`` allows (``auto``: below 2 GB):
 each step then sends one index row and permutes the targets on the device
 (:func:`~pcdiff_torch.train.make_device_data_step`); otherwise the loader streams host
-batches. Step metrics stay tensors until the end of the epoch, which reads them at once.
+batches. On a card outside a data group the step's loss, backward and gradient norm are
+replayed as CUDA graphs (:mod:`pcdiff_torch.train.graphs`: the eager step's launches, one
+host call a step). Step metrics stay tensors until the end of the epoch, which reads them
+at once.
 Every random draw comes from one generator, seeded by ``train.seed`` and saved with the
 state, so that a resumed run repeats an unbroken one.
 
@@ -243,7 +246,7 @@ def main(cfg: Config, device="cuda") -> Dict[str, Any]:
     use_device_data = _device_data_enabled(cfg, dataset)
     step_kwargs = dict(self_conditioning_prob=cfg.train.self_conditioning_prob,
                        bootstrap_include_partial_pcd=cfg.train.bootstrap_include_partial_pcd,
-                       data_group=group, device=dev)
+                       data_group=group, device=dev, cuda_graphs=True)
     if use_device_data:
         step_fn = make_device_data_step(model, diffusion, **step_kwargs)
         host_data = stack_dataset(dataset, cfg.train.seed)

@@ -175,9 +175,11 @@ def _shard_of(group) -> Shard:
 
 def _make_update(model: nn.Module, diffusion: GaussianDiffusion, *,
                  self_conditioning_prob: float, bootstrap_include_partial_pcd: bool,
-                 share_cond_encoders: bool, data_group, dev):
+                 share_cond_encoders: bool, data_group, dev, cuda_graphs: bool = False):
     """``update(state, batch, generator, use_cd_xyz) -> metrics`` on a batch of tensors
-    on ``dev``, which the model must lie on."""
+    on ``dev``, which the model must lie on. With ``cuda_graphs``, on a card and without
+    a data group, the loss, ``backward`` and the norm run as CUDA graphs
+    (:class:`~pcdiff_torch.train.graphs.StepGraphs`; a tensor chamfer flag runs eagerly)."""
     wrong = {str(p.device) for p in model.parameters() if p.device.type != dev.type}
     if wrong:
         raise ValueError(f"the model's parameters lie on {sorted(wrong)}, not on {dev}")
@@ -185,17 +187,33 @@ def _make_update(model: nn.Module, diffusion: GaussianDiffusion, *,
                            bootstrap_include_partial_pcd=bootstrap_include_partial_pcd,
                            share_cond_encoders=share_cond_encoders)
     shard = _shard_of(data_group)
+    graphs = None
+
+    def forward(batch, t, noise, use_sc, use_cd_xyz, generator):
+        with dropout_generator(generator, shard):
+            return loss_fn(batch, t, noise, use_sc, use_cd_xyz)
 
     def update(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator,
                use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
+        nonlocal graphs
         t, noise, use_sc = draw_step_randoms(batch["target"], diffusion.num_timesteps,
                                              self_conditioning_prob, generator, shard)
         model.train()
         params = state.params
+        if (cuda_graphs and dev.type == "cuda" and data_group is None
+                and not isinstance(use_cd_xyz, torch.Tensor)):
+            if graphs is None:
+                from .graphs import StepGraphs
+
+                graphs = StepGraphs(forward, dev)
+            metrics, grad_norm = graphs.run(params, batch, t, noise, use_sc,
+                                            bool(use_cd_xyz), generator)
+            state.apply_gradients(grad_norm)
+            metrics["grad_norm"] = grad_norm
+            return metrics
         for p in params:
             p.grad = None
-        with dropout_generator(generator, shard):
-            loss, metrics = loss_fn(batch, t, noise, use_sc, use_cd_xyz)
+        loss, metrics = forward(batch, t, noise, use_sc, use_cd_xyz, generator)
         loss.backward()
         if data_group is not None:
             average_gradients(params, data_group)
@@ -211,17 +229,19 @@ def _make_update(model: nn.Module, diffusion: GaussianDiffusion, *,
 def make_train_step(model: nn.Module, diffusion: GaussianDiffusion, *,
                     self_conditioning_prob: float = 0.6,
                     bootstrap_include_partial_pcd: bool = False,
-                    share_cond_encoders: bool = True, data_group=None, device="cuda"):
+                    share_cond_encoders: bool = True, data_group=None, device="cuda",
+                    cuda_graphs: bool = False):
     """``step(state, batch, generator, use_cd_xyz) -> metrics``: one update of ``state``
     (in place) on ``batch`` (arrays or tensors, moved to ``device``), every random draw
     from ``generator``. ``device`` is the card unless the caller asks for the CPU; the
     model must lie on it. With ``data_group`` the batch is this rank's shard of the
-    global batch (see the module's docstring)."""
+    global batch (see the module's docstring). ``cuda_graphs`` replays the loss and its
+    backward as CUDA graphs on a card (the same launches; see :mod:`.graphs`)."""
     dev = resolve_device(device)
     update = _make_update(model, diffusion, self_conditioning_prob=self_conditioning_prob,
                           bootstrap_include_partial_pcd=bootstrap_include_partial_pcd,
                           share_cond_encoders=share_cond_encoders, data_group=data_group,
-                          dev=dev)
+                          dev=dev, cuda_graphs=cuda_graphs)
 
     def step(state: TrainState, batch: Dict[str, Any], generator: torch.Generator,
              use_cd_xyz: Union[bool, torch.Tensor]) -> Dict[str, Any]:
@@ -246,7 +266,8 @@ def permute_points(target: torch.Tensor, generator: torch.Generator,
 def make_device_data_step(model: nn.Module, diffusion: GaussianDiffusion, *,
                           self_conditioning_prob: float = 0.6,
                           bootstrap_include_partial_pcd: bool = False,
-                          share_cond_encoders: bool = True, data_group=None, device="cuda"):
+                          share_cond_encoders: bool = True, data_group=None, device="cuda",
+                          cuda_graphs: bool = False):
     """``step(state, data, idx, generator, use_cd_xyz) -> metrics``: as
     :func:`make_train_step`, on the batch gathered by the index row ``idx`` [B] from
     ``data``, a dataset held on the device (``{key: [items, ...] tensor}``, the normalised
@@ -258,7 +279,7 @@ def make_device_data_step(model: nn.Module, diffusion: GaussianDiffusion, *,
     update = _make_update(model, diffusion, self_conditioning_prob=self_conditioning_prob,
                           bootstrap_include_partial_pcd=bootstrap_include_partial_pcd,
                           share_cond_encoders=share_cond_encoders, data_group=data_group,
-                          dev=dev)
+                          dev=dev, cuda_graphs=cuda_graphs)
     shard = _shard_of(data_group)
 
     def step(state: TrainState, data: Dict[str, torch.Tensor], idx, generator: torch.Generator,

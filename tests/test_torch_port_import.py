@@ -38,6 +38,8 @@ import pcdiff_torch.geometry.fps, pcdiff_torch.geometry.ply, pcdiff_torch.geomet
 import pcdiff_torch.utils, pcdiff_torch.utils.io, pcdiff_torch.evals, pcdiff_torch.evals.metrics
 import pcdiff_torch.cli, pcdiff_torch.cli.train, pcdiff_torch.cli.sample
 import pcdiff_torch.cli.evaluate, pcdiff_torch.scripts.quality
+import pcdiff_torch.scripts.trained_gates, pcdiff_torch.scripts.shapes_evidence
+import pcdiff_torch.train.graphs
 import pcdiff_torch.evals.fid_is, pcdiff_torch.evals.npz_stream, pcdiff_torch.evals.pointnet2
 import pcdiff_torch.evals.feature_extractor, pcdiff_torch.cli.evaluate_pfid
 import pcdiff_torch.cli.evaluate_pis, pcdiff_torch.cli.downsample
